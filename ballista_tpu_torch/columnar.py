@@ -1,0 +1,414 @@
+"""Columnar batch substrate: the unit of data flow between operators.
+
+The port of the JAX package's ``columnar.py`` to torch tensors. A batch is
+a struct of arrays of *fixed capacity* tensors on one explicit device:
+
+- each column is a dense tensor of length ``capacity`` (padded);
+- a boolean ``selection`` mask says which physical rows are live — filters
+  only AND into this mask, never compact on device;
+- string columns are dictionary codes (int32) + a host-side interned
+  ``Dictionary``;
+- every tensor of a batch lies on ``batch.device``; nothing moves a batch
+  to another device implicitly.
+
+Compaction (dropping dead rows) happens only at host boundaries (collect),
+where numpy boolean indexing is cheap.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .compile import bucket_capacity
+from .datatypes import DataType, Schema
+from .errors import ExecutionError, SchemaError
+
+# Default physical batch capacity (rows), as in the JAX package.
+DEFAULT_BATCH_CAPACITY = 1 << 20
+
+DeviceLike = Union[str, torch.device]
+
+
+def round_capacity(n: int, minimum: int = 8) -> int:
+    """Smallest power of two >= n (>= minimum)."""
+    cap = minimum
+    while cap < n:
+        cap <<= 1
+    return cap
+
+
+def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor on ``device``: a plain synchronous copy from
+    pageable memory. Pinning first would cost one more host copy of every
+    byte, and nothing in this engine overlaps the upload with other work
+    yet, so an asynchronous copy would buy nothing. (The JAX package's
+    narrow-wire transfer is a TPU-link optimisation and is not carried
+    over.) On the CPU the tensor shares the array's memory (read-only or
+    strided arrays are copied first)."""
+    return torch.from_numpy(np.require(arr, requirements=("C", "W"))).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Dictionary (host-side string table)
+# ---------------------------------------------------------------------------
+
+
+class Dictionary:
+    """Interned host-side string table for a dictionary-encoded column.
+
+    Identity-hashed: two scans of the same file share one instance.
+    Comparison kernels assume the values are sorted and duplicate-free.
+    """
+
+    __slots__ = ("values", "_index", "_str_cache")
+
+    def __init__(self, values: Sequence[str]):
+        self.values: np.ndarray = np.asarray(list(values), dtype=object)
+        self._index: Dict[str, int] = {v: i for i, v in enumerate(self.values)}
+        self._str_cache: Optional[np.ndarray] = None
+
+    def __len__(self) -> int:
+        return len(self.values)
+
+    def code_of(self, s: str) -> int:
+        """Code for string s, or -1 if absent (comparison can short-circuit)."""
+        return self._index.get(s, -1)
+
+    @staticmethod
+    def encode(strings: Sequence[str]) -> Tuple["Dictionary", np.ndarray]:
+        uniq, codes = np.unique(np.asarray(strings, dtype=object),
+                                return_inverse=True)
+        return Dictionary(uniq), codes.astype(np.int32)
+
+    def values_str(self) -> np.ndarray:
+        """Fixed-width ``np.str_`` view of the (sorted) values, cached."""
+        if self._str_cache is None:
+            self._str_cache = self.values.astype(str)
+        return self._str_cache
+
+    def positions_of(self, values) -> np.ndarray:
+        """int32 code per value via one sorted search over the str view
+        (absent values get their insertion position)."""
+        vals = np.asarray(values)
+        if vals.dtype.kind != "U":
+            vals = vals.astype(str)
+        return np.searchsorted(self.values_str(), vals).astype(np.int32)
+
+    def code_range(self, s: str) -> Tuple[int, int]:
+        """(left, right) insertion bounds of ``s`` in code space — string
+        ordering predicates compile to code comparisons against these."""
+        sv = self.values_str()
+        return (int(np.searchsorted(sv, s, side="left")),
+                int(np.searchsorted(sv, s, side="right")))
+
+    @staticmethod
+    def canonicalize(values: Sequence[str]) -> Tuple["Dictionary", np.ndarray]:
+        """Sorted-unique dictionary + old-code -> new-code remap table."""
+        uniq, remap = np.unique(np.asarray(values, dtype=object),
+                                return_inverse=True)
+        return Dictionary(uniq), remap.astype(np.int32)
+
+    def __hash__(self) -> int:
+        return id(self)
+
+    def __eq__(self, other) -> bool:
+        return self is other
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return f"Dictionary({len(self)} values)"
+
+
+# ---------------------------------------------------------------------------
+# Column
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Column:
+    """One physical column: device values + optional validity + dtype."""
+
+    values: torch.Tensor  # [capacity] (or [capacity, length] for lists)
+    dtype: DataType
+    validity: Optional[torch.Tensor] = None  # bool [capacity]; None = all valid
+    dictionary: Optional[Dictionary] = None  # only for Utf8
+
+    @property
+    def capacity(self) -> int:
+        return int(self.values.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# ColumnBatch
+# ---------------------------------------------------------------------------
+
+
+class ColumnBatch:
+    """Fixed-capacity columnar batch on one device.
+
+    ``selection`` is the live-row mask (False for filtered-out rows AND for
+    padding beyond the logical row count). ``num_rows`` is an int32 0-d
+    tensor on the batch's device with the count of live rows (kept
+    consistent with ``selection`` by constructors; operators that filter
+    must update both), so reading it never forces a device sync.
+    """
+
+    __slots__ = ("schema", "columns", "selection", "num_rows")
+
+    def __init__(
+        self,
+        schema: Schema,
+        columns: Sequence[Column],
+        selection: torch.Tensor,
+        num_rows: torch.Tensor,
+    ):
+        self.schema = schema
+        self.columns: Tuple[Column, ...] = tuple(columns)
+        self.selection = selection
+        self.num_rows = num_rows
+        if len(self.columns) != len(schema):
+            raise SchemaError(
+                f"schema has {len(schema)} fields but {len(self.columns)} columns given"
+            )
+
+    # -- constructors -------------------------------------------------------
+
+    @staticmethod
+    def from_numpy(
+        schema: Schema,
+        arrays: Dict[str, np.ndarray],
+        dictionaries: Optional[Dict[str, Dictionary]] = None,
+        capacity: Optional[int] = None,
+        validity: Optional[Dict[str, np.ndarray]] = None,
+        *,
+        device: DeviceLike,
+    ) -> "ColumnBatch":
+        """Build a batch on ``device`` from host arrays of physical values,
+        padding to capacity. ``validity`` maps column name -> bool array of
+        length n (True = valid); columns absent from it are all-valid."""
+        device = torch.device(device)
+        dictionaries = dictionaries or {}
+        validity = validity or {}
+        n = None
+        for name, arr in arrays.items():
+            if n is None:
+                n = len(arr)
+            elif len(arr) != n:
+                raise SchemaError(f"column {name} length {len(arr)} != {n}")
+        n = n or 0
+        # default capacities land on the canonical bucket ladder
+        cap = capacity or bucket_capacity(n)
+        if cap < n:
+            raise ExecutionError(f"capacity {cap} < rows {n}")
+        cols: List[Column] = []
+        for f in schema.fields:
+            if f.name not in arrays:
+                raise SchemaError(f"missing column {f.name}")
+            arr = np.asarray(arrays[f.name])
+            want = f.dtype.device_dtype()
+            if arr.dtype != want:
+                arr = arr.astype(want)
+            if n < cap:
+                # trailing dims (fixed-size-list element axis) pad along
+                # the row axis only
+                pad = np.zeros((cap - n,) + arr.shape[1:], dtype=want)
+                arr = np.concatenate([arr, pad])
+            va = validity.get(f.name)
+            if va is not None:
+                va = np.asarray(va, dtype=np.bool_)
+                if len(va) < cap:  # padding rows are not valid
+                    va = np.concatenate(
+                        [va, np.zeros(cap - len(va), dtype=np.bool_)]
+                    )
+                va = _upload(va, device)
+            cols.append(Column(_upload(arr, device), f.dtype, va,
+                               dictionaries.get(f.name)))
+        sel = np.zeros(cap, dtype=np.bool_)
+        sel[:n] = True
+        return ColumnBatch(
+            schema, cols, _upload(sel, device),
+            torch.tensor(n, dtype=torch.int32, device=device),
+        )
+
+    @staticmethod
+    def from_pydict(
+        schema: Schema, data: Dict[str, Sequence],
+        capacity: Optional[int] = None, *, device: DeviceLike,
+    ) -> "ColumnBatch":
+        """Build from logical Python values (strings, floats for decimals...)."""
+        arrays: Dict[str, np.ndarray] = {}
+        dicts: Dict[str, Dictionary] = {}
+        for f in schema.fields:
+            vals = data[f.name]
+            if f.dtype.kind == "utf8":
+                d, codes = Dictionary.encode([str(v) for v in vals])
+                dicts[f.name] = d
+                arrays[f.name] = codes
+            elif f.dtype.kind == "decimal":
+                arrays[f.name] = decimal_to_scaled(
+                    [float(v) for v in vals], f.dtype.scale
+                )
+            else:
+                arrays[f.name] = np.asarray(vals, dtype=f.dtype.device_dtype())
+        return ColumnBatch.from_numpy(schema, arrays, dicts, capacity,
+                                      device=device)
+
+    # -- info ---------------------------------------------------------------
+
+    @property
+    def capacity(self) -> int:
+        return int(self.selection.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.selection.device
+
+    def column(self, name: str) -> Column:
+        return self.columns[self.schema.index_of(name)]
+
+    def with_columns(self, schema: Schema, columns: Sequence[Column]) -> "ColumnBatch":
+        return ColumnBatch(schema, columns, self.selection, self.num_rows)
+
+    def with_selection(
+        self, selection: torch.Tensor, num_rows: Optional[torch.Tensor] = None
+    ) -> "ColumnBatch":
+        if num_rows is None:
+            num_rows = selection.sum(dtype=torch.int32)
+        return ColumnBatch(self.schema, self.columns, selection, num_rows)
+
+    # -- host materialization ----------------------------------------------
+
+    def to_pydict(self) -> Dict[str, np.ndarray]:
+        """Compact to host: logical values of live rows only."""
+        mask = self.selection.cpu().numpy()
+        out: Dict[str, np.ndarray] = {}
+        for f, col in zip(self.schema.fields, self.columns):
+            if f.dtype.kind == "utf8" and col.dictionary is None:
+                raise ExecutionError("utf8 column without dictionary")
+            v = col.values.cpu().numpy()
+            invalid = None
+            if col.validity is not None:
+                invalid = ~col.validity.cpu().numpy()[mask]
+            if f.dtype.kind == "list":
+                out[f.name] = decode_list_rows(
+                    v[mask], f.dtype.element.kind, f.dtype.element.scale,
+                    invalid,
+                )
+                continue
+            out[f.name] = decode_physical_array(
+                v[mask], f.dtype.kind, f.dtype.scale,
+                col.dictionary.values if col.dictionary is not None else None,
+                invalid,
+            )
+        return out
+
+    def num_rows_host(self) -> int:
+        return int(self.num_rows)
+
+    def __repr__(self) -> str:  # pragma: no cover - cosmetic
+        return (
+            f"ColumnBatch(cap={self.capacity}, device={self.device}, "
+            f"fields={self.schema.names()})"
+        )
+
+
+# ---------------------------------------------------------------------------
+# Host-side helpers (identical to the JAX package's)
+# ---------------------------------------------------------------------------
+
+
+def decimal_to_scaled(values, scale: int) -> np.ndarray:
+    """float/str decimal values -> scaled int64 using HALF-UP (away from
+    zero) rounding — the same rule as the native C++ parser."""
+    v = np.asarray(values, dtype=np.float64) * (10 ** scale)
+    return (np.sign(v) * np.floor(np.abs(v) + 0.5)).astype(np.int64)
+
+
+def decode_physical_array(
+    vals: np.ndarray,
+    kind: str,
+    scale: int = 0,
+    dictionary_values: Optional[np.ndarray] = None,
+    null_mask: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """Physical array -> logical host values, applying SQL NULL conventions
+    (None for strings, NaT for dates, NaN for numerics — integers with
+    NULLs widen to float64)."""
+    has_nulls = null_mask is not None and bool(np.asarray(null_mask).any())
+    if kind == "utf8":
+        if dictionary_values is None:
+            raise ExecutionError("utf8 decode requires a dictionary")
+        if isinstance(dictionary_values, Dictionary):
+            dictionary_values = dictionary_values.values
+        dv = np.asarray(dictionary_values, dtype=object)
+        codes = np.asarray(vals).astype(np.int64)
+        ok = (codes >= 0) & (codes < len(dv))
+        out = np.empty(len(codes), dtype=object)
+        out[ok] = dv[codes[ok]]
+        out[~ok] = None
+        if has_nulls:
+            out[null_mask] = None
+        return out
+    if kind == "date32":
+        out = np.asarray(vals).astype("datetime64[D]")
+        if has_nulls:
+            out[null_mask] = np.datetime64("NaT")
+        return out
+    if kind == "timestamp_ns":
+        out = np.asarray(vals).astype(np.int64).astype("datetime64[ns]")
+        if has_nulls:
+            out[null_mask] = np.datetime64("NaT")
+        return out
+    if kind == "decimal":
+        out = np.asarray(vals).astype(np.float64) / (10.0 ** scale)
+    elif kind in ("float32", "float64"):
+        out = np.asarray(vals).astype(np.float64)
+    elif has_nulls:
+        out = np.asarray(vals).astype(np.float64)
+    else:
+        return np.asarray(vals)
+    if has_nulls:
+        out[null_mask] = np.nan
+    return out
+
+
+def decode_list_rows(
+    vals2d: np.ndarray,
+    element_kind: str,
+    element_scale: int,
+    null_mask: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """(rows, length) physical list values -> object array of per-row 1-D
+    logical vectors (None for NULL rows)."""
+    arr = np.asarray(vals2d)
+    flat = decode_physical_array(arr.reshape(-1), element_kind,
+                                 element_scale, None, None)
+    rows = np.asarray(flat).reshape(arr.shape)
+    cell = np.empty(arr.shape[0], dtype=object)
+    for i in range(arr.shape[0]):
+        cell[i] = (None if null_mask is not None and null_mask[i]
+                   else rows[i])
+    return cell
+
+
+def empty_batch(schema: Schema, device: DeviceLike) -> ColumnBatch:
+    """Zero-row batch with the given schema (utf8 columns get empty
+    dictionaries)."""
+    return ColumnBatch.from_numpy(
+        schema,
+        {f.name: np.zeros(0, f.dtype.device_dtype()) for f in schema.fields},
+        {f.name: Dictionary([]) for f in schema.fields
+         if f.dtype.kind == "utf8"},
+        capacity=8,
+        device=device,
+    )
+
+
+def concat_pydicts(parts: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+    if not parts:
+        return {}
+    keys = parts[0].keys()
+    return {k: np.concatenate([p[k] for p in parts]) for k in keys}

@@ -1,0 +1,119 @@
+"""Single-process plan execution helpers.
+
+The port of the JAX package's ``execution.py``: plan a logical plan,
+execute every partition and gather the live rows on the host. The JAX
+package's EXPLAIN rendering, result cache, fusion and parallel partition
+ingest are not ported yet; partitions run one after another.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+
+from .columnar import concat_pydicts
+from .datatypes import Float64 as _F64
+from .errors import ExecutionError, NotImplementedError_
+from . import expr as ex
+from .logical import (
+    Aggregate,
+    Explain,
+    Filter,
+    LogicalPlan,
+    Projection,
+    Repartition,
+    Sort,
+)
+from .optimizer import optimize
+from .physical.base import PhysicalPlan
+from .physical.planner import create_physical_plan
+
+
+def resolve_scalar_subqueries(plan: LogicalPlan, options=None) -> LogicalPlan:
+    """Execute uncorrelated scalar subqueries and inline them as literals.
+
+    Runs before optimization/serialization, so distributed plans never
+    carry subquery nodes (the client resolves them, like the reference
+    plans SQL client-side — reference: rust/client/src/context.rs:131-144).
+    """
+
+    def subquery_value(sq: ex.ScalarSubquery) -> ex.Literal:
+        sub = sq.plan
+        if sub is None:
+            raise ExecutionError(
+                "unplanned scalar subquery (correlated scalar subqueries "
+                "are only supported in WHERE comparisons)"
+            )
+        out = collect_physical(plan_logical(sub, options))
+        f = sub.schema().fields[0]
+        col = out[f.name]
+        if len(col) == 0:
+            return ex.Literal(None, f.dtype)  # SQL: empty scalar -> NULL
+        if len(col) > 1:
+            raise ExecutionError(
+                f"scalar subquery returned {len(col)} rows"
+            )
+        v = col[0]
+        if v is None or (isinstance(v, float) and np.isnan(v)):
+            return ex.Literal(None, f.dtype)
+        if f.dtype.kind in ("decimal", "float32", "float64"):
+            return ex.Literal(float(v), _F64)
+        if f.dtype.kind == "date32":
+            days = int(np.asarray(v).astype("datetime64[D]").astype(np.int32))
+            return ex.Literal(days, f.dtype)
+        if f.dtype.kind == "utf8":
+            return ex.Literal(str(v), f.dtype)
+        return ex.Literal(int(v), f.dtype)
+
+    def fix(e: ex.Expr) -> ex.Expr:
+        if isinstance(e, ex.ScalarSubquery):
+            return subquery_value(e)
+        for attr in ("expr", "left", "right", "base", "otherwise"):
+            if hasattr(e, attr) and isinstance(getattr(e, attr), ex.Expr):
+                setattr(e, attr, fix(getattr(e, attr)))
+        if hasattr(e, "args"):
+            e.args = [fix(a) for a in e.args]
+        if hasattr(e, "list"):
+            e.list = [fix(a) for a in e.list]
+        if hasattr(e, "branches"):
+            e.branches = [(fix(w), fix(t)) for w, t in e.branches]
+        return e
+
+    def walk(p: LogicalPlan) -> LogicalPlan:
+        if isinstance(p, Filter):
+            p.predicate = fix(p.predicate)
+        elif isinstance(p, Projection):
+            p.exprs = [fix(e) for e in p.exprs]
+        elif isinstance(p, Aggregate):
+            p.group_exprs = [fix(e) for e in p.group_exprs]
+            p.agg_exprs = [fix(e) for e in p.agg_exprs]
+        elif isinstance(p, Sort):
+            p.sort_exprs = [fix(e) for e in p.sort_exprs]
+        elif isinstance(p, Repartition) and p.hash_exprs:
+            p.hash_exprs = [fix(e) for e in p.hash_exprs]
+        for c in p.children():
+            walk(c)
+        return p
+
+    return walk(plan)
+
+
+def plan_logical(plan: LogicalPlan, options=None) -> PhysicalPlan:
+    """Resolve scalar subqueries, optimize, and plan physically."""
+    if isinstance(plan, Explain):
+        raise NotImplementedError_("EXPLAIN is not ported yet")
+    plan = resolve_scalar_subqueries(plan, options)
+    return create_physical_plan(optimize(plan), options)
+
+
+def collect_physical(phys: PhysicalPlan) -> Dict[str, np.ndarray]:
+    """Execute all partitions (in order) and concatenate live rows on
+    host as a dict of numpy arrays (logical values)."""
+    parts: List[Dict[str, np.ndarray]] = []
+    for p in range(phys.output_partitioning().num_partitions):
+        for batch in phys.execute(p):
+            parts.append(batch.to_pydict())
+    if not parts:
+        return {f.name: np.asarray([]) for f in phys.output_schema().fields}
+    return concat_pydicts(parts)

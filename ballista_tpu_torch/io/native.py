@@ -1,0 +1,201 @@
+"""ctypes bindings for the native C++ scanner (``native/tblscan.cpp``,
+the port's own copy of the JAX package's scanner).
+
+Returns (num_rows, arrays dict, dictionaries dict) in the engine's physical
+representations. The library is built with g++ into the port's build
+directory at first use (``native_build.py``); there is no other reader, so
+a scan raises when it cannot be built.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Dict, Sequence, Tuple
+
+import numpy as np
+
+from ..datatypes import Schema
+from ..errors import ExecutionError, IoError
+
+_lib = None
+_lib_lock = threading.Lock()
+
+_KIND_CODES = {
+    "int64": 0,
+    "int32": 1,
+    "decimal": 2,
+    "date32": 3,
+    "utf8": 4,
+    "float32": 5,
+    "float64": 5,
+    "boolean": 6,
+}
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        from ..native_build import build_tblscan
+
+        try:
+            path = build_tblscan()
+        except ExecutionError as e:
+            raise IoError(f"native scanner unavailable: {e}") from e
+        lib = ctypes.CDLL(path)
+        lib.tbl_open.restype = ctypes.c_void_p
+        lib.tbl_open.argtypes = [
+            ctypes.c_char_p, ctypes.c_int,
+            ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
+            ctypes.POINTER(ctypes.c_int32), ctypes.c_int,
+            ctypes.c_char, ctypes.c_int,
+        ]
+        lib.tbl_open_range.restype = ctypes.c_void_p
+        lib.tbl_open_range.argtypes = lib.tbl_open.argtypes + [
+            ctypes.c_int64, ctypes.c_int64,
+        ]
+        lib.tbl_open_range_mt.restype = ctypes.c_void_p
+        lib.tbl_open_range_mt.argtypes = lib.tbl_open_range.argtypes + [
+            ctypes.c_int,
+        ]
+        lib.tbl_error.restype = ctypes.c_char_p
+        lib.tbl_error.argtypes = [ctypes.c_void_p]
+        lib.tbl_num_rows.restype = ctypes.c_int64
+        lib.tbl_num_rows.argtypes = [ctypes.c_void_p]
+        for fn, ptr_t in (
+            ("tbl_fill_i64", ctypes.POINTER(ctypes.c_int64)),
+            ("tbl_fill_i32", ctypes.POINTER(ctypes.c_int32)),
+            ("tbl_fill_f32", ctypes.POINTER(ctypes.c_float)),
+        ):
+            f = getattr(lib, fn)
+            f.restype = ctypes.c_int
+            f.argtypes = [ctypes.c_void_p, ctypes.c_int, ptr_t]
+        lib.tbl_dict_count.restype = ctypes.c_int64
+        lib.tbl_dict_count.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.tbl_dict_total_bytes.restype = ctypes.c_int64
+        lib.tbl_dict_total_bytes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.tbl_fill_dict.restype = ctypes.c_int
+        lib.tbl_fill_dict.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p,
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        lib.tbl_has_null.restype = ctypes.c_int
+        lib.tbl_has_null.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        lib.tbl_fill_valid.restype = ctypes.c_int
+        lib.tbl_fill_valid.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_uint8),
+        ]
+        lib.tbl_close.restype = None
+        lib.tbl_close.argtypes = [ctypes.c_void_p]
+        _lib = lib
+        return _lib
+
+
+def build() -> None:
+    """Build (if needed) and load the scanner's library."""
+    _load()
+
+
+def scan_file(
+    path: str,
+    schema: Schema,
+    wanted: Sequence[str],
+    delimiter: str = "|",
+    skip_header: bool = False,
+    offset: int = 0,
+    max_bytes: int = -1,
+    threads: int = 0,
+) -> Tuple[int, Dict[str, np.ndarray], Dict[str, np.ndarray],
+           Dict[str, np.ndarray]]:
+    """Parse one file (or a byte range of it) natively. Returns (num_rows,
+    physical arrays, raw dictionary values per utf8 column — sorted, codes
+    ordinal, validity bool arrays for columns that saw SQL NULLs — empty
+    non-string fields; all-valid columns are absent from the dict).
+
+    Range semantics (offset/max_bytes): rows start at the first line
+    boundary after ``offset`` and include every row beginning before
+    ``offset + max_bytes``, so adjacent ranges partition the file's rows
+    exactly (bounded-RAM streaming / parallel chunk workers).
+
+    ``threads``: parse the range with N parallel workers (sub-ranges
+    merged in order, utf8 codes remapped onto a union dictionary).
+    0 = auto: BALLISTA_SCAN_THREADS, else the host's CPU count. The
+    native side clamps so each worker gets >= 16MB."""
+    lib = _load()
+    ncols = len(schema)
+    kinds = (ctypes.c_int32 * ncols)(
+        *[_KIND_CODES[f.dtype.kind] for f in schema.fields]
+    )
+    scales = (ctypes.c_int32 * ncols)(*[f.dtype.scale for f in schema.fields])
+    widx = [schema.index_of(n) for n in wanted]
+    wantarr = (ctypes.c_int32 * max(len(widx), 1))(*(widx or [0]))
+
+    if threads <= 0:
+        threads = int(os.environ.get("BALLISTA_SCAN_THREADS", 0) or
+                      (os.cpu_count() or 1))
+    h = lib.tbl_open_range_mt(path.encode(), ncols, kinds, scales, wantarr,
+                              len(widx), delimiter.encode()[0:1],
+                              1 if skip_header else 0, offset, max_bytes,
+                              threads)
+    try:
+        err = lib.tbl_error(h)
+        if err:
+            raise IoError(f"native scan of {path}: {err.decode()}")
+        n = lib.tbl_num_rows(h)
+        arrays: Dict[str, np.ndarray] = {}
+        dicts: Dict[str, np.ndarray] = {}
+        valids: Dict[str, np.ndarray] = {}
+        for name in wanted:
+            i = schema.index_of(name)
+            f = schema.fields[i]
+            kind = f.dtype.kind
+            if kind in ("int64", "decimal"):
+                buf = np.empty(n, dtype=np.int64)
+                if n and lib.tbl_fill_i64(
+                    h, i, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+                ):
+                    raise IoError(f"column {name}: fill failed")
+                arrays[name] = buf
+            elif kind in ("int32", "date32", "utf8", "boolean"):
+                buf = np.empty(n, dtype=np.int32)
+                if n and lib.tbl_fill_i32(
+                    h, i, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_int32))
+                ):
+                    raise IoError(f"column {name}: fill failed")
+                arrays[name] = buf
+                if kind == "utf8":
+                    dc = lib.tbl_dict_count(h, i)
+                    nbytes = lib.tbl_dict_total_bytes(h, i)
+                    raw = ctypes.create_string_buffer(max(int(nbytes), 1))
+                    offs = np.empty(dc + 1, dtype=np.int64)
+                    lib.tbl_fill_dict(
+                        h, i, raw,
+                        offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                    )
+                    blob = raw.raw[: int(nbytes)]
+                    vals = np.empty(dc, dtype=object)
+                    for j in range(dc):
+                        vals[j] = blob[offs[j]:offs[j + 1]].decode(
+                            "utf-8", errors="replace"
+                        )
+                    dicts[name] = vals
+            else:  # float
+                buf = np.empty(n, dtype=np.float32)
+                if n and lib.tbl_fill_f32(
+                    h, i, buf.ctypes.data_as(ctypes.POINTER(ctypes.c_float))
+                ):
+                    raise IoError(f"column {name}: fill failed")
+                arrays[name] = buf
+            if n and lib.tbl_has_null(h, i):
+                vbuf = np.empty(n, dtype=np.uint8)
+                if lib.tbl_fill_valid(
+                    h, i, vbuf.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+                ):
+                    raise IoError(f"column {name}: validity fill failed")
+                valids[name] = vbuf.astype(np.bool_)
+        return int(n), arrays, dicts, valids
+    finally:
+        lib.tbl_close(h)

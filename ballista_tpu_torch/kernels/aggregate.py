@@ -1,0 +1,302 @@
+"""Dense grouped and ungrouped aggregation.
+
+The port of the dense and scalar parts of the JAX package's
+``kernels/aggregate.py`` (the sort-based ``grouped_aggregate``,
+``grouped_distinct_count`` and ``dense_grouped_scatter`` are not ported
+yet). SQL semantics carried through:
+
+- NULL inputs are excluded from aggregates, and each aggregate reports a
+  per-group validity ("any non-NULL input seen"), so all-NULL groups yield
+  NULL rather than the reduction identity;
+- sums over decimals stay in int64, so results are exact.
+
+Where JAX drops out-of-range scatter indices, torch raises (on CUDA it
+asserts), so every scatter here sends dead rows to an explicit trash slot
+``G`` that is sliced off afterwards.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from ..errors import ExecutionError
+from .dense_sums import dense_grouped_sums
+
+
+@dataclass
+class AggInput:
+    """One aggregate to compute: op in {sum, count, min, max}."""
+
+    op: str
+    values: Optional[torch.Tensor]  # None for count(*)
+    validity: Optional[torch.Tensor]  # None = all valid
+
+
+@dataclass
+class GroupedResult:
+    rep_indices: torch.Tensor  # int32 [G] original row index of each group's first row
+    group_valid: torch.Tensor  # bool [G]
+    num_groups: torch.Tensor  # int32 0-d (groups present)
+    aggregates: List[torch.Tensor]  # each [G]
+    agg_valid: List[torch.Tensor]  # bool [G] per aggregate ("any input seen")
+
+
+def _max_ident(dt: torch.dtype):
+    if dt.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dt).max
+
+
+def _min_ident(dt: torch.dtype):
+    if dt.is_floating_point:
+        return float("-inf")
+    return torch.iinfo(dt).min
+
+
+def _is_integer(t: torch.Tensor) -> bool:
+    return not t.dtype.is_floating_point and t.dtype != torch.bool
+
+
+# ---------------------------------------------------------------------------
+# Dense grouping: group ids already small dense ints (dictionary codes /
+# booleans with known cardinality). No sort.
+# ---------------------------------------------------------------------------
+
+
+def _additive(a: AggInput) -> bool:
+    """True for aggregates the dense-sums kernel computes (integer sums
+    and counts, validity-masked or not); min/max and float sums stay on
+    the plain torch path (split per aggregate)."""
+    if a.op == "count":
+        return True
+    return a.op == "sum" and a.values is not None and _is_integer(a.values)
+
+
+def dense_grouped_aggregate(
+    gids: torch.Tensor,  # int32 [N] in [0, num_groups)
+    live: torch.Tensor,  # bool [N]
+    aggs: Sequence[AggInput],
+    num_groups: int,
+) -> GroupedResult:
+    """The additive aggregates go through ``dense_grouped_sums`` whenever
+    at least one of them is a sum — the CUDA kernel for tensors on a card,
+    its plain version for tensors on the CPU — split from the rest exactly
+    as the JAX package splits its Pallas path (there the kernel is opt-in;
+    here it is the only path on a card)."""
+    additive = [a for a in aggs if _additive(a)]
+    rest = [a for a in aggs if not _additive(a)]
+    if not any(a.op == "sum" for a in additive):
+        return _dense_grouped_torch(gids, live, aggs, num_groups)
+    res_k = _dense_grouped_sums(gids, live, additive, num_groups)
+    if not rest:
+        return res_k
+    res_t = _dense_grouped_torch(gids, live, rest, num_groups)
+    results, valids = [], []
+    ik = it = 0
+    for a in aggs:
+        if _additive(a):
+            results.append(res_k.aggregates[ik])
+            valids.append(res_k.agg_valid[ik])
+            ik += 1
+        else:
+            results.append(res_t.aggregates[it])
+            valids.append(res_t.agg_valid[it])
+            it += 1
+    return GroupedResult(res_k.rep_indices, res_k.group_valid,
+                         res_k.num_groups, results, valids)
+
+
+def _dense_grouped_torch(
+    gids: torch.Tensor,
+    live: torch.Tensor,
+    aggs: Sequence[AggInput],
+    num_groups: int,
+) -> GroupedResult:
+    """Counterpart of the JAX ``_dense_grouped_xla``. JAX reduces an
+    [N, G] membership mask that XLA never materializes; torch would, so
+    this scatters each row into its group slot instead (slot G is the
+    trash of dead rows). Same results: ``rep_indices`` is the first live
+    row of each group and 0 for an empty group (``argmax`` of an all-False
+    column)."""
+    n = gids.shape[0]
+    g = num_groups
+    dev = gids.device
+    member = live & (gids >= 0) & (gids < g)
+    slot = torch.where(member, gids.to(torch.int64), g)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    first = torch.full((g + 1,), n, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, slot, pos, reduce="amin")
+    group_valid = first[:g] < n
+    rep_indices = torch.where(group_valid, first[:g], 0).to(torch.int32)
+    num_present = group_valid.sum(dtype=torch.int32)
+
+    results: List[torch.Tensor] = []
+    valid_results: List[torch.Tensor] = []
+    for a in aggs:
+        s = slot if a.validity is None else torch.where(a.validity, slot, g)
+        seen = torch.zeros((g + 1,), dtype=torch.int64, device=dev)
+        seen.index_add_(0, s, torch.ones(n, dtype=torch.int64, device=dev))
+        if a.op == "count":
+            r = seen[:g]
+            va = group_valid
+        else:
+            if a.values is None:
+                raise ExecutionError(f"{a.op} requires input values")
+            v = torch.broadcast_to(a.values, (n,))
+            if a.op == "sum":
+                r = torch.zeros((g + 1,), dtype=v.dtype, device=dev)
+                r.index_add_(0, s, v)
+            elif a.op == "min":
+                r = torch.full((g + 1,), _max_ident(v.dtype), dtype=v.dtype,
+                               device=dev)
+                r.scatter_reduce_(0, s, v, reduce="amin")
+            elif a.op == "max":
+                r = torch.full((g + 1,), _min_ident(v.dtype), dtype=v.dtype,
+                               device=dev)
+                r.scatter_reduce_(0, s, v, reduce="amax")
+            else:
+                raise ExecutionError(f"unknown aggregate op {a.op}")
+            r = r[:g]
+            va = seen[:g] > 0
+        results.append(torch.where(va, r, torch.zeros((), dtype=r.dtype,
+                                                      device=dev)))
+        valid_results.append(va)
+
+    return GroupedResult(rep_indices, group_valid, num_present, results,
+                         valid_results)
+
+
+def _dense_grouped_sums(gids, live, aggs, num_groups) -> GroupedResult:
+    """Integer sums/counts through ``dense_grouped_sums``; representatives
+    by a scatter-min. Counterpart of the JAX ``_dense_grouped_pallas``.
+
+    Validity handling happens BEFORE the kernel: masked-out sum inputs
+    are zeroed (sum semantics), and each validity-masked aggregate gets
+    one extra 0/1 value column whose per-group sum is its valid-input
+    count — so the kernel only ever sums, and per-aggregate NULL
+    semantics (all-NULL group -> NULL) survive exactly."""
+    values: List[torch.Tensor] = []
+    # per agg: ("count", None) | ("countv", vcol) | ("sum", col, vcol|None)
+    plan = []
+    vmask_col: dict = {}  # id(validity) -> value-column index of its mask
+
+    def mask_col(validity) -> int:
+        key = id(validity)
+        if key not in vmask_col:
+            vmask_col[key] = len(values)
+            values.append(validity.to(torch.int64).contiguous())
+        return vmask_col[key]
+
+    n = gids.shape[0]
+    for a in aggs:
+        if a.op == "count":
+            if a.validity is None:
+                plan.append(("count", None, None))
+            else:
+                plan.append(("countv", mask_col(a.validity), None))
+        else:  # integer sum
+            v = torch.broadcast_to(a.values.to(torch.int64), (n,))
+            vcol = None
+            if a.validity is not None:
+                v = torch.where(a.validity, v, 0)
+                vcol = mask_col(a.validity)  # may append; BEFORE len()
+            plan.append(("sum", len(values), vcol))
+            values.append(v.contiguous())
+
+    sums, counts = dense_grouped_sums(gids.to(torch.int32).contiguous(),
+                                      live.contiguous(), values, num_groups)
+    dev = gids.device
+    g = num_groups
+    # segment_min over gids: JAX's drops out-of-range ids, here they go to
+    # the trash slot; an empty group gets n - 1, as in the JAX package
+    ok = (gids >= 0) & (gids < g)
+    slot = torch.where(ok, gids.to(torch.int64), g)
+    pos = torch.where(live, torch.arange(n, dtype=torch.int64, device=dev), n)
+    first = torch.full((g + 1,), n, dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, slot, pos, reduce="amin")
+    rep_indices = torch.clamp(first[:g], max=max(n - 1, 0)).to(torch.int32)
+    group_valid = counts > 0
+    num_present = group_valid.sum(dtype=torch.int32)
+    results: List[torch.Tensor] = []
+    valid_results: List[torch.Tensor] = []
+    for a, (kind, col, vcol) in zip(aggs, plan):
+        if kind == "count":
+            results.append(counts)
+            valid_results.append(group_valid)
+        elif kind == "countv":
+            results.append(sums[col])
+            valid_results.append(group_valid)
+        else:
+            va = group_valid if vcol is None else (sums[vcol] > 0)
+            out = sums[col].to(a.values.dtype)
+            results.append(torch.where(va, out, 0))
+            valid_results.append(va)
+    return GroupedResult(rep_indices, group_valid, num_present, results,
+                         valid_results)
+
+
+# ---------------------------------------------------------------------------
+# Ungrouped aggregation (whole-batch reductions)
+# ---------------------------------------------------------------------------
+
+
+def scalar_aggregate(
+    live: torch.Tensor, aggs: Sequence[AggInput]
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Returns (values, validities) as 0-d tensors — validity False when
+    no valid input."""
+    out: List[torch.Tensor] = []
+    valid_out: List[torch.Tensor] = []
+    dev = live.device
+    for a in aggs:
+        valid = live
+        if a.validity is not None:
+            valid = torch.logical_and(valid, a.validity)
+        any_valid = torch.any(valid)
+        if a.op == "count":
+            out.append(valid.sum(dtype=torch.int64))
+            valid_out.append(torch.ones((), dtype=torch.bool, device=dev))
+            continue
+        v = torch.broadcast_to(a.values, live.shape)
+        if a.op == "sum":
+            r = torch.where(valid, v, torch.zeros((), dtype=v.dtype,
+                                                  device=dev)).sum(dtype=v.dtype)
+        elif a.op == "min":
+            r = torch.where(valid, v, _max_ident(v.dtype)).min()
+        elif a.op == "max":
+            r = torch.where(valid, v, _min_ident(v.dtype)).max()
+        else:
+            raise ExecutionError(f"unknown aggregate op {a.op}")
+        out.append(torch.where(any_valid, r, torch.zeros((), dtype=r.dtype,
+                                                         device=dev)))
+        valid_out.append(any_valid)
+    return out, valid_out
+
+
+# ---------------------------------------------------------------------------
+# Exact fixed-point average: sum/count scaled to 10^6 without overflowing
+# ---------------------------------------------------------------------------
+
+
+def avg_fixed(sum_: torch.Tensor, count: torch.Tensor,
+              in_scale: int) -> torch.Tensor:
+    """(sum / count) scaled to Decimal(6), overflow-safe.
+
+    Splits the division: A = q*M + (r*M)/count with q=sum/count,
+    r=sum%count, M=10^(6-in_scale) — r*M stays < count*M so the only
+    overflow left is a logical |avg| >= ~9.2e12, documented out of range.
+    Every division TRUNCATES toward zero, like ``lax.div``/``lax.rem`` in
+    the JAX package; ``//`` and ``%`` would floor and differ on negative
+    sums."""
+    s = sum_.to(torch.int64)
+    if in_scale > 6:
+        s = torch.div(s, 10 ** (in_scale - 6), rounding_mode="trunc")
+        in_scale = 6
+    m = 10 ** (6 - in_scale)
+    c = torch.clamp(count.to(torch.int64), min=1)
+    q = torch.div(s, c, rounding_mode="trunc")
+    r = torch.fmod(s, c)
+    return q * m + torch.div(r * m, c, rounding_mode="trunc")

@@ -1,0 +1,382 @@
+"""Logical plan: the relational algebra IR.
+
+Mirrors the reference wire contract's logical plan surface (reference:
+rust/core/proto/ballista.proto:164-179 ``LogicalPlanNode`` with variants
+TableScan/Projection/Filter/Aggregate/Join/Limit/Sort/Repartition/
+EmptyRelation/CreateExternalTable/Explain) re-designed as Python dataclasses
+whose schemas are computed eagerly for binder/optimizer use.
+
+``LogicalPlanBuilder`` provides the fluent construction API the reference
+exposes through its DataFrame verbs (reference: rust/client/src/context.rs:
+241-314).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field as dc_field
+from typing import List, Optional, Sequence, Tuple
+
+from .datatypes import Field, Int64, Schema
+from .errors import PlanError, SchemaError
+from . import expr as ex
+
+
+class LogicalPlan:
+    """Base class for logical plan nodes."""
+
+    def schema(self) -> Schema:
+        raise NotImplementedError
+
+    def children(self) -> List["LogicalPlan"]:
+        return []
+
+    def display(self) -> str:
+        raise NotImplementedError
+
+    def pretty(self, indent: int = 0) -> str:
+        out = "  " * indent + self.display() + "\n"
+        for c in self.children():
+            out += c.pretty(indent + 1)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Sources
+# ---------------------------------------------------------------------------
+
+
+class TableSource:
+    """Provider interface for scannable tables (io layer implements it)."""
+
+    def __deepcopy__(self, memo):
+        # deep-copying a plan (e.g. inlining a registered view) must
+        # SHARE sources, not clone their data/caches
+        return self
+
+    def table_schema(self) -> Schema:
+        raise NotImplementedError
+
+    def num_partitions(self) -> int:
+        raise NotImplementedError
+
+    def scan(self, partition: int, projection: Optional[Sequence[str]] = None):
+        """Yield ColumnBatches for one partition."""
+        raise NotImplementedError
+
+    def source_descriptor(self) -> dict:
+        """Serializable description {kind, path, ...} for plan serde."""
+        raise NotImplementedError
+
+    def estimated_rows(self) -> Optional[int]:
+        """Cheap row-count estimate (file sizes / metadata); None=unknown."""
+        return None
+
+    def content_signature(self) -> Optional[tuple]:
+        """Identity of the data this source serves, re-stat'd at call
+        time (file sizes + mtimes). The result-cache key ingredient:
+        None (the default) marks the source unsignable, making any plan
+        over it uncacheable — memtables and system tables stay live."""
+        return None
+
+    def residency_key(self, partition: int,
+                      projection=None) -> Optional[tuple]:
+        """Device-residency cache key for one partition scan; None =
+        this source never routes through the residency layer."""
+        return None
+
+    def is_resident(self, partition: int, projection=None) -> bool:
+        """Whether this partition's scan output is device-resident
+        right now (prefetch routing: no parse/H2D left to overlap)."""
+        return False  # the port has no residency layer yet
+
+    def scan_cache_outcome(self, partition: int) -> Optional[str]:
+        """Device-residency outcome of this partition's most recent
+        scan (``hit``/``filled``/``miss``), for EXPLAIN ANALYZE; None
+        when the source doesn't route through the residency layer."""
+        outcomes = getattr(self, "_scan_outcomes", None)
+        return outcomes.get(partition) if outcomes else None
+
+    def _note_scan_outcome(self, partition: int):
+        """Sink for ``cache.residency.serve_or_fill``: records the
+        outcome per partition (benign last-writer-wins race, display
+        only)."""
+
+        def sink(outcome: str) -> None:
+            outcomes = getattr(self, "_scan_outcomes", None)
+            if outcomes is None:
+                outcomes = self._scan_outcomes = {}
+            outcomes[partition] = outcome
+
+        return sink
+
+
+@dataclass
+class TableScan(LogicalPlan):
+    table_name: str
+    source: TableSource
+    projection: Optional[Tuple[str, ...]] = None
+
+    def schema(self) -> Schema:
+        s = self.source.table_schema()
+        if self.projection is not None:
+            return s.project(self.projection)
+        return s
+
+    def display(self) -> str:
+        p = f" projection={list(self.projection)}" if self.projection else ""
+        return f"TableScan: {self.table_name}{p}"
+
+
+@dataclass
+class EmptyRelation(LogicalPlan):
+    produce_one_row: bool = False
+
+    def schema(self) -> Schema:
+        return Schema([])
+
+    def display(self) -> str:
+        return "EmptyRelation"
+
+
+# ---------------------------------------------------------------------------
+# Unary nodes
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class Projection(LogicalPlan):
+    exprs: List[ex.Expr]
+    input: LogicalPlan
+
+    def schema(self) -> Schema:
+        ins = self.input.schema()
+        return Schema([e.to_field(ins) for e in self.exprs])
+
+    def children(self) -> List[LogicalPlan]:
+        return [self.input]
+
+    def display(self) -> str:
+        return f"Projection: {', '.join(e.name() for e in self.exprs)}"
+
+
+@dataclass
+class Filter(LogicalPlan):
+    predicate: ex.Expr
+    input: LogicalPlan
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def children(self) -> List[LogicalPlan]:
+        return [self.input]
+
+    def display(self) -> str:
+        return f"Filter: {self.predicate.name()}"
+
+
+@dataclass
+class Aggregate(LogicalPlan):
+    group_exprs: List[ex.Expr]
+    agg_exprs: List[ex.Expr]  # AggregateExpr possibly wrapped in Alias
+    input: LogicalPlan
+
+    def schema(self) -> Schema:
+        ins = self.input.schema()
+        fields = [e.to_field(ins) for e in self.group_exprs]
+        fields += [e.to_field(ins) for e in self.agg_exprs]
+        return Schema(fields)
+
+    def children(self) -> List[LogicalPlan]:
+        return [self.input]
+
+    def display(self) -> str:
+        g = ", ".join(e.name() for e in self.group_exprs)
+        a = ", ".join(e.name() for e in self.agg_exprs)
+        return f"Aggregate: groupBy=[{g}], aggr=[{a}]"
+
+
+@dataclass
+class Sort(LogicalPlan):
+    sort_exprs: List[ex.SortExpr]
+    input: LogicalPlan
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def children(self) -> List[LogicalPlan]:
+        return [self.input]
+
+    def display(self) -> str:
+        return f"Sort: {', '.join(e.name() for e in self.sort_exprs)}"
+
+
+@dataclass
+class Limit(LogicalPlan):
+    n: int
+    input: LogicalPlan
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def children(self) -> List[LogicalPlan]:
+        return [self.input]
+
+    def display(self) -> str:
+        return f"Limit: {self.n}"
+
+
+@dataclass
+class Repartition(LogicalPlan):
+    """Round-robin or hash repartition (reference: ballista.proto:219-230)."""
+
+    input: LogicalPlan
+    num_partitions: int
+    hash_exprs: Optional[List[ex.Expr]] = None  # None = round-robin
+
+    def schema(self) -> Schema:
+        return self.input.schema()
+
+    def children(self) -> List[LogicalPlan]:
+        return [self.input]
+
+    def display(self) -> str:
+        kind = (
+            f"hash[{', '.join(e.name() for e in self.hash_exprs)}]"
+            if self.hash_exprs
+            else "round-robin"
+        )
+        return f"Repartition: {kind} into {self.num_partitions}"
+
+
+# ---------------------------------------------------------------------------
+# Join
+# ---------------------------------------------------------------------------
+
+JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti")
+
+
+@dataclass
+class Join(LogicalPlan):
+    left: LogicalPlan
+    right: LogicalPlan
+    on: List[Tuple[str, str]]  # (left_col, right_col)
+    how: str = "inner"
+    # SQL NOT IN lowering: anti join where any NULL build key empties the
+    # result and NULL probe keys are excluded
+    null_aware: bool = False
+
+    def __post_init__(self):
+        if self.how not in JOIN_TYPES:
+            raise PlanError(f"unknown join type {self.how}")
+
+    def schema(self) -> Schema:
+        ls, rs = self.left.schema(), self.right.schema()
+        if self.how in ("semi", "anti"):
+            return ls
+        # drop duplicate right-side join columns that share a name
+        lf = list(ls.fields)
+        seen = {f.name for f in lf}
+        rf = [f for f in rs.fields if f.name not in seen]
+        return Schema(lf + rf)
+
+    def children(self) -> List[LogicalPlan]:
+        return [self.left, self.right]
+
+    def display(self) -> str:
+        on = ", ".join(f"{l}={r}" for l, r in self.on)
+        return f"Join: how={self.how} on=[{on}]"
+
+
+# ---------------------------------------------------------------------------
+# Explain
+# ---------------------------------------------------------------------------
+
+# (plan_type, plan) rows, matching the surface the reference's users see
+# through DataFusion's EXPLAIN output table. Single source of truth: the
+# physical ExplainExec imports this.
+def _explain_schema() -> Schema:
+    from .datatypes import Utf8
+
+    return Schema([Field("plan_type", Utf8, False),
+                   Field("plan", Utf8, False)])
+
+
+EXPLAIN_SCHEMA = _explain_schema()
+
+
+@dataclass
+class Explain(LogicalPlan):
+    input: LogicalPlan
+    verbose: bool = False
+    # EXPLAIN ANALYZE: execute the input and annotate the rendered
+    # physical plan with live operator metrics
+    analyze: bool = False
+
+    def schema(self) -> Schema:
+        return EXPLAIN_SCHEMA
+
+    def children(self) -> List[LogicalPlan]:
+        return [self.input]
+
+    def display(self) -> str:
+        return ("Explain" + (" analyze" if self.analyze else "")
+                + (" verbose" if self.verbose else ""))
+
+
+# ---------------------------------------------------------------------------
+# Builder (fluent API used by DataFrame + SQL planner)
+# ---------------------------------------------------------------------------
+
+
+class LogicalPlanBuilder:
+    def __init__(self, plan: LogicalPlan):
+        self.plan = plan
+
+    @staticmethod
+    def scan(table_name: str, source: TableSource) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(TableScan(table_name, source))
+
+    @staticmethod
+    def empty() -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(EmptyRelation())
+
+    def project(self, exprs: Sequence[ex.Expr]) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(Projection(list(exprs), self.plan))
+
+    def filter(self, predicate: ex.Expr) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(Filter(predicate, self.plan))
+
+    def aggregate(
+        self, group_exprs: Sequence[ex.Expr], agg_exprs: Sequence[ex.Expr]
+    ) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(
+            Aggregate(list(group_exprs), list(agg_exprs), self.plan)
+        )
+
+    def sort(self, sort_exprs: Sequence[ex.SortExpr]) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(Sort(list(sort_exprs), self.plan))
+
+    def limit(self, n: int) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(Limit(n, self.plan))
+
+    def repartition(
+        self, num_partitions: int, hash_exprs: Optional[Sequence[ex.Expr]] = None
+    ) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(
+            Repartition(
+                self.plan,
+                num_partitions,
+                list(hash_exprs) if hash_exprs else None,
+            )
+        )
+
+    def join(
+        self,
+        right: "LogicalPlanBuilder",
+        on: Sequence[Tuple[str, str]],
+        how: str = "inner",
+    ) -> "LogicalPlanBuilder":
+        return LogicalPlanBuilder(Join(self.plan, right.plan, list(on), how))
+
+    def build(self) -> LogicalPlan:
+        return self.plan

@@ -1,0 +1,385 @@
+"""Hash-aggregate physical operator (Partial / Final modes).
+
+The port of the JAX package's ``physical/aggregate.py``, dense and scalar
+branches. Group keys whose cardinalities are known (dictionary codes,
+booleans) and multiply to at most ``DENSE_GROUP_LIMIT`` take the dense,
+sort-free path (``kernels.aggregate.dense_grouped_aggregate``, whose
+integer sums run in the CUDA kernel on a card); ungrouped aggregates take
+``scalar_aggregate``. The mixed/ranged scatter and sort-based grouping of
+the JAX package are not ported yet and raise ``NotImplementedError_``.
+
+State layout: Partial emits "group columns + state columns" batches
+(avg -> sum+count states), Final regroups the concatenated partial tables,
+merges states, and finalizes (avg division in scaled int64 -> Decimal(6)).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Tuple
+
+import torch
+
+from ..columnar import Column, ColumnBatch
+from ..datatypes import DataType, Decimal, Field, Float64, Int64, Schema
+from ..errors import ExecutionError, NotImplementedError_
+from .. import expr as ex
+from ..kernels.aggregate import (
+    AggInput,
+    avg_fixed,
+    dense_grouped_aggregate,
+    scalar_aggregate,
+)
+from ..kernels.expr_eval import Evaluator
+from .base import PhysicalPlan, Partitioning, concat_batches
+
+# dictionary-coded group keys with product-of-cardinalities at or below
+# this use the sort-free dense path
+DENSE_GROUP_LIMIT = 256
+
+DEFAULT_GROUP_CAPACITY = 1 << 12
+
+
+def _state_ops(agg: ex.AggregateExpr):
+    """[(state_suffix, op)] for one aggregate expr."""
+    if agg.fn == "count":
+        return [("count", "count")]
+    if agg.fn == "sum":
+        return [("sum", "sum")]
+    if agg.fn == "avg":
+        return [("sum", "sum"), ("count", "count")]
+    if agg.fn in ("min", "max"):
+        return [(agg.fn, agg.fn)]
+    raise NotImplementedError_(f"aggregate fn {agg.fn}")
+
+
+def _state_specs(agg: ex.AggregateExpr, idx: int, in_schema: Schema):
+    """Partial mode: [(state_field_name, op, state_dtype)] typed from the
+    original input schema."""
+    if agg.fn == "count":
+        return [(f"__s{idx}_count", "count", Int64)]
+    dt = agg.expr.to_field(in_schema).dtype
+    if agg.fn in ("sum", "avg"):
+        if dt.is_integer:
+            sum_t: DataType = Int64
+        elif dt.kind == "decimal":
+            sum_t = dt
+        else:
+            sum_t = Float64
+        out = [(f"__s{idx}_sum", "sum", sum_t)]
+        if agg.fn == "avg":
+            out.append((f"__s{idx}_count", "count", Int64))
+        return out
+    return [(f"__s{idx}_{agg.fn}", agg.fn, dt)]
+
+
+class HashAggregateExec(PhysicalPlan):
+    """mode: 'partial' (per input partition) or 'final' (after merge)."""
+
+    def __init__(
+        self,
+        mode: str,
+        group_exprs: List[ex.Expr],
+        agg_exprs: List[ex.Expr],  # AggregateExpr or Alias(AggregateExpr)
+        child: PhysicalPlan,
+        group_capacity: int = DEFAULT_GROUP_CAPACITY,
+    ):
+        assert mode in ("partial", "final")
+        self.mode = mode
+        self.group_exprs = list(group_exprs)
+        self.agg_exprs = list(agg_exprs)
+        self.child = child
+        self.group_capacity = group_capacity
+        self._in_schema = child.output_schema()
+        self._ev = Evaluator(self._in_schema)
+        self._aggs = [
+            (e.name(), ex.strip_alias(e)) for e in self.agg_exprs
+        ]
+        for name, a in self._aggs:
+            if not isinstance(a, ex.AggregateExpr):
+                raise ExecutionError(f"not an aggregate expression: {name}")
+
+    # -- schemas ------------------------------------------------------------
+
+    def group_fields(self) -> List[Field]:
+        if self.mode == "partial":
+            return [e.to_field(self._in_schema) for e in self.group_exprs]
+        # final mode: group columns are already materialized in the input
+        return [self._in_schema.field(e.name()) for e in self.group_exprs]
+
+    def state_fields(self) -> List[Tuple[str, str, DataType]]:
+        """Flattened (name, op, dtype) of all aggregate states."""
+        out = []
+        for i, (_, a) in enumerate(self._aggs):
+            if self.mode == "partial":
+                out.extend(_state_specs(a, i, self._in_schema))
+            else:
+                # final mode: dtype comes from the partial output schema
+                for suffix, op in _state_ops(a):
+                    name = f"__s{i}_{suffix}"
+                    out.append((name, op, self._in_schema.field(name).dtype))
+        return out
+
+    def output_schema(self) -> Schema:
+        gf = self.group_fields()
+        if self.mode == "partial":
+            sf = [Field(n, dt, True) for n, _, dt in self.state_fields()]
+            return Schema(gf + sf)
+        af = []
+        for name, a in self._aggs:
+            f = self._agg_output_field(name, a)
+            af.append(f)
+        return Schema(gf + af)
+
+    def _agg_output_field(self, name: str, a: ex.AggregateExpr) -> Field:
+        # final output dtype must match logical Aggregate schema; state
+        # dtypes live in the partial schema under __s{i}_* names
+        if a.fn == "count":
+            return Field(name, Int64, False)
+        i = self._agg_index(name)
+        if a.fn == "avg":
+            sum_f = self._in_schema.field(f"__s{i}_sum")
+            if sum_f.dtype.kind == "decimal" or sum_f.dtype.is_integer:
+                return Field(name, Decimal(6), True)
+            return Field(name, Float64, True)
+        if a.fn == "sum":
+            return Field(name, self._in_schema.field(f"__s{i}_sum").dtype, True)
+        return Field(name, self._in_schema.field(f"__s{i}_{a.fn}").dtype, True)
+
+    def _agg_index(self, name: str) -> int:
+        for i, (n, _) in enumerate(self._aggs):
+            if n == name:
+                return i
+        raise ExecutionError(name)
+
+    def output_partitioning(self) -> Partitioning:
+        if self.mode == "partial":
+            return self.child.output_partitioning()
+        # final mode: one output partition per input partition (1 after a
+        # merge; N when the partial states were hash-shuffled on the
+        # group keys, in which case groups are co-located per partition)
+        return Partitioning(
+            "unknown", self.child.output_partitioning().num_partitions
+        )
+
+    def children(self):
+        return [self.child]
+
+    def display(self) -> str:
+        g = ", ".join(e.name() for e in self.group_exprs)
+        a = ", ".join(n for n, _ in self._aggs)
+        return f"HashAggregateExec: mode={self.mode} gby=[{g}] aggr=[{a}]"
+
+    # -- execution ----------------------------------------------------------
+
+    def execute(self, partition: int) -> Iterator[ColumnBatch]:
+        batches = list(self.child.execute(partition))
+        if not batches:
+            return
+        batch = concat_batches(self._in_schema, batches)
+        if not self.group_exprs:
+            yield self._exec_scalar(batch)
+        else:
+            yield self._exec_grouped(batch)
+
+    # grouped ---------------------------------------------------------------
+
+    def _agg_inputs_partial(self, batch: ColumnBatch) -> List[AggInput]:
+        aggs: List[AggInput] = []
+        for i, (_, a) in enumerate(self._aggs):
+            specs = _state_specs(a, i, self._in_schema)
+            for (_, op, dt) in specs:
+                if op == "count":
+                    if a.is_star or a.fn == "avg" and a.expr is None:
+                        aggs.append(AggInput("count", None, None))
+                    else:
+                        r = self._ev.evaluate(a.expr, batch)
+                        aggs.append(AggInput("count", None, r.validity))
+                else:
+                    r = self._ev.evaluate(a.expr, batch)
+                    v = torch.broadcast_to(r.values, (batch.capacity,))
+                    v = self._to_state_dtype(v, r.dtype, dt)
+                    aggs.append(AggInput(op, v, r.validity))
+        return aggs
+
+    def _agg_inputs_final(self, batch: ColumnBatch) -> List[AggInput]:
+        aggs: List[AggInput] = []
+        for name, op, dt in self.state_fields():
+            col = batch.column(name)
+            # merging states: counts and sums add up; min/min, max/max
+            merge_op = "sum" if op in ("count", "sum") else op
+            aggs.append(AggInput(merge_op, col.values, col.validity))
+        return aggs
+
+    def _to_state_dtype(self, v, src: DataType, dst: DataType):
+        if dst.kind == "decimal" or dst.is_integer:
+            return v.to(torch.int64)
+        return v.to(torch.float32)
+
+    def _dense_group_ids(self, batch: ColumnBatch, key_evals):
+        """(gid int32 [capacity], G) when every key has a known
+        cardinality and the product fits the dense path, else None —
+        the dense branch of the JAX ``_run_grouping``."""
+        cards = []
+        for r in key_evals:
+            if r.dictionary is not None:
+                cards.append(len(r.dictionary))
+            elif r.dtype.kind == "boolean":
+                cards.append(2)
+            else:
+                return None
+        g_total = 1
+        for r, card in zip(key_evals, cards):
+            g_total *= card + (1 if r.validity is not None else 0)
+        if not 0 < g_total <= min(DENSE_GROUP_LIMIT, self.group_capacity):
+            return None
+        gid = torch.zeros((batch.capacity,), dtype=torch.int32,
+                          device=batch.device)
+        for r, card in zip(key_evals, cards):
+            slots = card + (1 if r.validity is not None else 0)
+            code = torch.broadcast_to(r.values.to(torch.int32),
+                                      (batch.capacity,))
+            if r.validity is not None:
+                # NULL keys take the extra slot per key column
+                code = torch.where(r.validity, code, card)
+            gid = gid * slots + code
+        return gid, g_total
+
+    def _exec_grouped(self, batch: ColumnBatch) -> ColumnBatch:
+        key_evals, aggs = self._inputs_and_keys(batch)
+        dense = self._dense_group_ids(batch, key_evals)
+        if dense is None:
+            raise NotImplementedError_(
+                "grouping by keys without a small known cardinality (the "
+                "mixed/ranged scatter and sort-based grouping) is not "
+                "ported yet: ROADMAP queue 1 item 6")
+        gid, g_total = dense
+        res = dense_grouped_aggregate(gid, batch.selection, aggs, g_total)
+        return self._assemble(batch, key_evals, res, g_total)
+
+    def _inputs_and_keys(self, batch: ColumnBatch):
+        """(key_evals, aggs) for the current mode."""
+        if self.mode == "partial":
+            key_evals = [self._ev.evaluate(e, batch) for e in self.group_exprs]
+            aggs = self._agg_inputs_partial(batch)
+        else:
+            key_evals = [
+                self._ev.evaluate(ex.ColumnRef(e.name()), batch)
+                for e in self.group_exprs
+            ]
+            aggs = self._agg_inputs_final(batch)
+        return key_evals, aggs
+
+    def _assemble(self, batch: ColumnBatch, key_evals, res, cap: int):
+        """GroupedResult -> output ColumnBatch."""
+        out_cols: List[Column] = []
+        gf = self.group_fields()
+        idx = res.rep_indices.to(torch.int64)
+        for f, r in zip(gf, key_evals):
+            vals = torch.broadcast_to(r.values, (batch.capacity,))[idx]
+            validity = r.validity[idx] if r.validity is not None else None
+            out_cols.append(Column(vals, f.dtype, validity, r.dictionary))
+        if self.mode == "partial":
+            for (name, op, dt), arr, va in zip(
+                self.state_fields(), res.aggregates, res.agg_valid
+            ):
+                out_cols.append(Column(arr, dt, va, None))
+        else:
+            out_cols.extend(self._finalize(res))
+        return ColumnBatch(
+            self.output_schema(), out_cols, res.group_valid,
+            torch.clamp(res.num_groups, max=cap),
+        )
+
+    def _finalize(self, res) -> List[Column]:
+        """final mode: merge states -> output aggregate columns."""
+        cols: List[Column] = []
+        state_arrays = res.aggregates
+        si = 0
+        for i, (name, a) in enumerate(self._aggs):
+            ops = _state_ops(a)
+            n_states = len(ops)
+            arrs = state_arrays[si : si + n_states]
+            dts = [
+                self._in_schema.field(f"__s{i}_{suffix}").dtype
+                for suffix, _ in ops
+            ]
+            si += n_states
+            valids = res.agg_valid[si - n_states : si]
+            out_f = self._agg_output_field(name, a)
+            if a.fn == "count":
+                cols.append(Column(arrs[0], Int64, None, None))
+            elif a.fn == "avg":
+                s, c = arrs[0], arrs[1]
+                sum_dt = dts[0]
+                if sum_dt.kind == "decimal" or sum_dt.is_integer:
+                    scale = sum_dt.scale if sum_dt.kind == "decimal" else 0
+                    val = avg_fixed(s, c, scale)
+                    cols.append(Column(val, Decimal(6), c > 0, None))
+                else:
+                    val = s.to(torch.float32) / torch.clamp(c, min=1).to(torch.float32)
+                    cols.append(Column(val, Float64, c > 0, None))
+            else:  # sum/min/max: NULL when no valid input was seen
+                cols.append(Column(arrs[0], out_f.dtype, valids[0], None))
+        return cols
+
+    # ungrouped -------------------------------------------------------------
+
+    def _exec_scalar(self, batch: ColumnBatch) -> ColumnBatch:
+        if self.mode == "partial":
+            aggs = self._agg_inputs_partial(batch)
+        else:
+            aggs = self._agg_inputs_final(batch)
+        vals, valids = scalar_aggregate(batch.selection, aggs)
+
+        cap = 8
+        dev = batch.device
+
+        def expand(v, valid, dt):
+            arr = torch.zeros((cap,), dtype=dt.torch_dtype(), device=dev)
+            arr[0] = v.to(dt.torch_dtype())
+            validity = None
+            if valid is not None:
+                validity = torch.zeros((cap,), dtype=torch.bool, device=dev)
+                validity[0] = valid
+            return arr, validity
+
+        cols: List[Column] = []
+        schema = self.output_schema()
+        if self.mode == "partial":
+            for (name, op, dt), v, va in zip(self.state_fields(), vals, valids):
+                arr, validity = expand(v, va, dt)
+                cols.append(Column(arr, dt, validity, None))
+        else:
+            si = 0
+            for i, (name, a) in enumerate(self._aggs):
+                ops = _state_ops(a)
+                arrs = vals[si : si + len(ops)]
+                vas = valids[si : si + len(ops)]
+                dts = [
+                    self._in_schema.field(f"__s{i}_{suffix}").dtype
+                    for suffix, _ in ops
+                ]
+                si += len(ops)
+                out_f = self._agg_output_field(name, a)
+                if a.fn == "avg":
+                    s, c = arrs[0], arrs[1]
+                    sum_dt = dts[0]
+                    if sum_dt.kind == "decimal" or sum_dt.is_integer:
+                        scale = sum_dt.scale if sum_dt.kind == "decimal" else 0
+                        v = avg_fixed(s, c, scale)
+                    else:
+                        v = s.to(torch.float32) / torch.clamp(c, min=1).to(
+                            torch.float32
+                        )
+                    arr, validity = expand(v, c > 0, out_f.dtype)
+                    cols.append(Column(arr, out_f.dtype, validity, None))
+                elif a.fn == "count":
+                    arr, _ = expand(arrs[0], None, out_f.dtype)
+                    cols.append(Column(arr, out_f.dtype, None, None))
+                else:  # sum/min/max: NULL when no valid input
+                    arr, validity = expand(arrs[0], vas[0], out_f.dtype)
+                    cols.append(Column(arr, out_f.dtype, validity, None))
+        sel = torch.zeros((cap,), dtype=torch.bool, device=dev)
+        sel[0] = True
+        return ColumnBatch(schema, cols, sel,
+                           torch.tensor(1, dtype=torch.int32, device=dev))

@@ -1,0 +1,274 @@
+"""Physical plan base classes + batch utilities.
+
+The port of the JAX package's ``physical/base.py``. Execution model:
+``execute(partition)`` yields ColumnBatches (host-driven volcano at batch
+granularity). Pipeline operators (filter/projection) are applied to each
+batch in turn as eager torch ops; the JAX package's governed jit, fusion,
+donation and compile signatures have no counterpart here yet.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from ..columnar import Column, ColumnBatch, Dictionary
+from ..compile import bucket_capacity
+from ..datatypes import Schema
+from ..errors import ExecutionError
+from ..observability.metrics import MetricsSet, instrument_execute
+
+
+@dataclass(frozen=True)
+class Partitioning:
+    """Output partitioning descriptor."""
+
+    kind: str  # "unknown" | "round_robin" | "hash"
+    num_partitions: int
+    hash_columns: tuple = ()
+
+
+class PhysicalPlan:
+    """Base physical operator.
+
+    Every subclass that overrides ``execute`` is transparently
+    instrumented (``__init_subclass__`` below): each call records
+    ``output_rows``/``output_batches``/``elapsed_compute`` on the
+    operator's :class:`MetricsSet`.
+    """
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        exec_fn = cls.__dict__.get("execute")
+        if exec_fn is not None:
+            cls.execute = instrument_execute(exec_fn)
+
+    def metrics(self) -> MetricsSet:
+        """The operator's MetricsSet (lazily created)."""
+        m = getattr(self, "_metrics", None)
+        if m is None:
+            m = self._metrics = MetricsSet()
+        return m
+
+    def output_schema(self) -> Schema:
+        raise NotImplementedError
+
+    def output_partitioning(self) -> Partitioning:
+        cs = self.children()
+        if cs:
+            return cs[0].output_partitioning()
+        return Partitioning("unknown", 1)
+
+    def children(self) -> List["PhysicalPlan"]:
+        return []
+
+    def execute(self, partition: int) -> Iterator[ColumnBatch]:
+        raise NotImplementedError(type(self).__name__)
+
+    def display(self) -> str:
+        return type(self).__name__
+
+    def pretty(self, indent: int = 0) -> str:
+        out = "  " * indent + self.display() + "\n"
+        for c in self.children():
+            out += c.pretty(indent + 1)
+        return out
+
+    def pretty_metrics(self, indent: int = 0) -> str:
+        """Plan text annotated with the operators' metrics."""
+        ann = self.metrics().summary()
+        out = ("  " * indent + self.display()
+               + (f", metrics=[{ann}]" if ann else "") + "\n")
+        for c in self.children():
+            out += c.pretty_metrics(indent + 1)
+        return out
+
+
+class PipelineOp(PhysicalPlan):
+    """Operator whose work is a pure batch->batch device transform.
+
+    A chain of PipelineOps is applied batch by batch by its outermost
+    operator, as the JAX package's fused chain is.
+    """
+
+    child: PhysicalPlan
+    # True for transforms that can kill rows (FilterExec): the chain's
+    # output is then adaptively compacted (maybe_compact: >=4x shrink)
+    compactable = False
+
+    def device_transform(self, batch: ColumnBatch) -> ColumnBatch:
+        raise NotImplementedError(type(self).__name__)
+
+    def children(self) -> List[PhysicalPlan]:
+        return [self.child]
+
+    def _pipeline_chain(self):
+        """(transforms outer-to-inner reversed into apply order, source op)."""
+        chain: List[PipelineOp] = []
+        node: PhysicalPlan = self
+        while isinstance(node, PipelineOp):
+            chain.append(node)
+            node = node.child
+        chain.reverse()  # innermost transform first
+        return chain, node
+
+    def execute(self, partition: int) -> Iterator[ColumnBatch]:
+        chain, source = self._pipeline_chain()
+        # Adaptive, as in the JAX package: after 2 consecutive batches
+        # that decline to compact, stop paying the per-batch live-count
+        # sync; the learned capacity floor keeps later batches from
+        # compacting to ever-different ladder rungs.
+        compact = any(op.compactable for op in chain)
+        for batch in source.execute(partition):
+            out = batch
+            for op in chain:
+                out = op.device_transform(out)
+            if compact and getattr(self, "_compact_misses", 0) < 2:
+                res = maybe_compact(
+                    out, floor=getattr(self, "_compact_floor", 8))
+                if res is out:
+                    self._compact_misses = \
+                        getattr(self, "_compact_misses", 0) + 1
+                else:
+                    self._compact_misses = 0
+                    self._compact_floor = max(
+                        getattr(self, "_compact_floor", 8), res.capacity)
+                    self.metrics().add_counter("compact_count")
+                out = res
+            yield out
+
+
+# ---------------------------------------------------------------------------
+# Batch utilities shared by operators
+# ---------------------------------------------------------------------------
+
+
+def _unify_dictionaries(dicts: List[Optional[Dictionary]]):
+    """Sorted union of several dictionaries + one int32 remap table per
+    input (None where the input already is the union)."""
+    present = [d for d in dicts if d is not None]
+    union = Dictionary(np.unique(np.concatenate(
+        [d.values_str() for d in present])))
+    remaps = [None if d is None or (len(d) == len(union) and np.array_equal(
+        d.values_str(), union.values_str())) else union.positions_of(d.values)
+        for d in dicts]
+    return union, remaps
+
+
+def concat_batches(schema: Schema, batches: List[ColumnBatch]) -> ColumnBatch:
+    """Concatenate batches (same device) into one larger-capacity batch.
+
+    utf8 columns whose batches carry DIFFERENT dictionaries are unified: a
+    sorted union dictionary is built host-side and each batch's codes are
+    remapped by a gather on the device.
+
+    Output capacity is the exact SUM of the inputs (not padded up to a
+    ladder rung), as in the JAX package.
+    """
+    if not batches:
+        raise ExecutionError("concat of zero batches")
+    if len(batches) == 1:
+        return batches[0]
+    dev = batches[0].device
+    if any(b.device != dev for b in batches):
+        raise ExecutionError("concat of batches on different devices")
+    cols: List[Column] = []
+    for i, f in enumerate(schema.fields):
+        values_list = [b.columns[i].values for b in batches]
+        dicts = [b.columns[i].dictionary for b in batches]
+        dict_ = next((d for d in dicts if d is not None), None)
+        if dict_ is not None and any(
+            d is not None and d is not dict_ for d in dicts
+        ):
+            dict_, remaps = _unify_dictionaries(dicts)
+            remapped = []
+            for v, remap in zip(values_list, remaps):
+                if remap is None:
+                    remapped.append(v)
+                    continue
+                table = torch.from_numpy(remap).to(dev)
+                idx = v.to(torch.int64).clamp(0, max(len(remap) - 1, 0))
+                remapped.append(table[idx])
+            values_list = remapped
+        vals = torch.cat(values_list)
+        vs = [b.columns[i].validity for b in batches]
+        if any(v is not None for v in vs):
+            validity = torch.cat([
+                v if v is not None
+                else torch.ones((b.capacity,), dtype=torch.bool, device=dev)
+                for v, b in zip(vs, batches)
+            ])
+        else:
+            validity = None
+        cols.append(Column(vals, f.dtype, validity, dict_))
+    selection = torch.cat([b.selection for b in batches])
+    num_rows = torch.stack([b.num_rows for b in batches]).sum(dtype=torch.int32)
+    return ColumnBatch(schema, cols, selection, num_rows)
+
+
+def maybe_compact(batch: ColumnBatch, shrink_factor: int = 4,
+                  known_rows: Optional[int] = None,
+                  floor: int = 8) -> ColumnBatch:
+    """Shrink a sparse batch: when live rows fill under 1/shrink_factor
+    of the capacity, gather them to the front of a smaller batch.
+
+    Pass ``known_rows`` when the live count is already on host; otherwise
+    this reads ``num_rows`` (one device sync). The JAX package skips that
+    sync when it measured it as expensive (a remote TPU); on a local card
+    it costs microseconds, so the port always pays it."""
+    n = known_rows if known_rows is not None else int(batch.num_rows)
+    cap = batch.capacity
+    # compaction targets land on the bucket ladder
+    new_cap = max(bucket_capacity(n), floor, 8)
+    if new_cap * shrink_factor > cap:
+        return batch
+    perm = compact_perm(batch.selection, new_cap)
+    live = torch.arange(new_cap, dtype=torch.int32,
+                        device=batch.device) < batch.num_rows
+    return take_batch(batch, perm, live)
+
+
+def pad_batch(batch: ColumnBatch, capacity: int) -> ColumnBatch:
+    """Grow a batch's capacity with dead padding rows (device)."""
+    if capacity <= batch.capacity:
+        return batch
+    extra = capacity - batch.capacity
+    dev = batch.device
+    cols = []
+    for col in batch.columns:
+        vals = torch.cat([col.values, torch.zeros(
+            (extra,) + tuple(col.values.shape[1:]), dtype=col.values.dtype,
+            device=dev)])
+        validity = (
+            torch.cat([col.validity,
+                       torch.zeros((extra,), dtype=torch.bool, device=dev)])
+            if col.validity is not None else None)
+        cols.append(Column(vals, col.dtype, validity, col.dictionary))
+    selection = torch.cat(
+        [batch.selection, torch.zeros((extra,), dtype=torch.bool, device=dev)])
+    return ColumnBatch(batch.schema, cols, selection, batch.num_rows)
+
+
+def compact_perm(selection: torch.Tensor, size: int) -> torch.Tensor:
+    """Gather permutation of ``size`` entries putting live rows first, in
+    order, padded with 0 — ``jnp.nonzero(size=, fill_value=0)``."""
+    idx = torch.nonzero(selection, as_tuple=True)[0][:size]
+    out = torch.zeros((size,), dtype=torch.int64, device=selection.device)
+    out[: idx.shape[0]] = idx
+    return out.to(torch.int32)
+
+
+def take_batch(batch: ColumnBatch, perm: torch.Tensor,
+               live: torch.Tensor) -> ColumnBatch:
+    """Reorder a batch by ``perm``; ``live`` is the selection after reorder."""
+    idx = perm.to(torch.int64)
+    cols = []
+    for col in batch.columns:
+        vals = torch.broadcast_to(
+            col.values, (batch.capacity,) + tuple(col.values.shape[1:]))[idx]
+        validity = col.validity[idx] if col.validity is not None else None
+        cols.append(Column(vals, col.dtype, validity, col.dictionary))
+    return ColumnBatch(batch.schema, cols, live, live.sum(dtype=torch.int32))
