@@ -12,9 +12,12 @@
 // adds the values themselves: a grid-stride loop over rows, per-block
 // [G, K+1] accumulators in shared memory (atomicAdd on unsigned long long),
 // then one global atomicAdd per non-zero cell into the [G, K+1] output,
-// which the caller zeroes. When G * (K+1) * 8 bytes exceeds the 48 KB a
-// block gets without opting in, the rows add straight into the global
-// output instead.
+// which the caller zeroes. One launch takes at most kMaxCols value
+// columns; at G = 256 that is 256 * 65 * 8 = 133,120 B of shared memory,
+// above the 48 KB a block gets by default and under the 227 KB it may opt
+// into on the H100, so the launch opts in when it needs to. The caller
+// splits wider inputs, and inputs whose accumulators would not fit, into
+// launches over fewer columns.
 //
 // Exactness. Addition of unsigned 64-bit integers is addition mod 2^64,
 // which is associative and commutative, and int64 two's complement has
@@ -37,13 +40,12 @@
 namespace {
 
 constexpr int kMaxCols = 64;  // value columns one launch takes
-constexpr int kSharedLimitBytes = 48 * 1024;
+constexpr size_t kDefaultSharedBytes = 48 * 1024;
 
 struct ColumnPointers {
   const long long* p[kMaxCols];
 };
 
-template <bool kShared>
 __global__ void dense_grouped_sums_kernel(const int32_t* __restrict__ gids,
                                           const uint8_t* __restrict__ live,
                                           ColumnPointers cols, long long n,
@@ -52,29 +54,23 @@ __global__ void dense_grouped_sums_kernel(const int32_t* __restrict__ gids,
   extern __shared__ unsigned long long acc[];
   const int c = k + 1;
   const int cells = g * c;
-  unsigned long long* dst = out;
-  if (kShared) {
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) acc[i] = 0ULL;
-    __syncthreads();
-    dst = acc;
-  }
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) acc[i] = 0ULL;
+  __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        row < n; row += stride) {
     const int gid = gids[row];
     if (!live[row] || gid < 0 || gid >= g) continue;
-    unsigned long long* cell = dst + (long long)gid * c;
+    unsigned long long* cell = acc + gid * c;
     for (int j = 0; j < k; ++j) {
       atomicAdd(cell + j, (unsigned long long)cols.p[j][row]);
     }
     atomicAdd(cell + k, 1ULL);
   }
-  if (kShared) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      const unsigned long long v = acc[i];
-      if (v != 0ULL) atomicAdd(out + i, v);
-    }
+  __syncthreads();
+  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+    const unsigned long long v = acc[i];
+    if (v != 0ULL) atomicAdd(out + i, v);
   }
 }
 
@@ -82,10 +78,12 @@ __global__ void dense_grouped_sums_kernel(const int32_t* __restrict__ gids,
 
 extern "C" {
 
-// Launches the kernel on `stream` and returns cudaGetLastError() (0 when
-// the launch was accepted). `cols` is a HOST array of k device pointers,
-// each to n contiguous int64 values; `out` is a zeroed device
-// [g, k+1] int64 array.
+// Launches the kernel on `stream` and returns a CUDA error code: 0 when
+// the launch was accepted, else cudaErrorInvalidValue for bad arguments,
+// the error of opting into more shared memory, or cudaGetLastError().
+// `cols` is a HOST array of k device pointers, each to n contiguous int64
+// values; `out` is a zeroed device [g, k+1] int64 array. The
+// [g, k+1] accumulators must fit dense_grouped_sums_max_shared_bytes().
 int dense_grouped_sums_launch(const void* gids, const void* live,
                               const void* const* cols, long long n, int k,
                               int g, void* out, int blocks, int threads,
@@ -99,19 +97,30 @@ int dense_grouped_sums_launch(const void* gids, const void* live,
     ptrs.p[j] = j < k ? static_cast<const long long*>(cols[j]) : nullptr;
   }
   const size_t shared_bytes = (size_t)g * (size_t)(k + 1) * sizeof(unsigned long long);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (shared_bytes <= (size_t)kSharedLimitBytes) {
-    dense_grouped_sums_kernel<true><<<blocks, threads, shared_bytes, s>>>(
-        static_cast<const int32_t*>(gids), static_cast<const uint8_t*>(live),
-        ptrs, n, k, g, static_cast<unsigned long long*>(out));
-  } else {
-    dense_grouped_sums_kernel<false><<<blocks, threads, 0, s>>>(
-        static_cast<const int32_t*>(gids), static_cast<const uint8_t*>(live),
-        ptrs, n, k, g, static_cast<unsigned long long*>(out));
+  if (shared_bytes > kDefaultSharedBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        dense_grouped_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shared_bytes);
+    if (err != cudaSuccess) return (int)err;
   }
+  dense_grouped_sums_kernel<<<blocks, threads, shared_bytes,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(gids), static_cast<const uint8_t*>(live),
+      ptrs, n, k, g, static_cast<unsigned long long*>(out));
   return (int)cudaGetLastError();
 }
 
 int dense_grouped_sums_max_cols(void) { return kMaxCols; }
+
+// The shared memory one block of `device` may opt into, in bytes (0 when
+// the device cannot be queried).
+int dense_grouped_sums_max_shared_bytes(int device) {
+  int bytes = 0;
+  if (cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return 0;
+  }
+  return bytes;
+}
 
 }  // extern "C"

@@ -49,6 +49,8 @@ def _load():
             ]
             lib.dense_grouped_sums_max_cols.restype = ctypes.c_int
             lib.dense_grouped_sums_max_cols.argtypes = []
+            lib.dense_grouped_sums_max_shared_bytes.restype = ctypes.c_int
+            lib.dense_grouped_sums_max_shared_bytes.argtypes = [ctypes.c_int]
             _lib = lib
         return _lib
 
@@ -86,8 +88,24 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, n: int,
         raise ExecutionError(f"{name} is not contiguous")
 
 
+def _columns_per_launch(lib, dev: torch.device, k: int,
+                        num_groups: int) -> int:
+    """Value columns one launch takes: at most the kernel's limit, and few
+    enough that the [G, cols+1] int64 accumulators fit the shared memory a
+    block may opt into."""
+    shared = lib.dense_grouped_sums_max_shared_bytes(dev.index)
+    fit = shared // (8 * num_groups) - 1
+    if k > 0 and fit < 1:
+        raise ExecutionError(
+            f"dense_grouped_sums: the accumulators of {num_groups} groups do "
+            f"not fit one block's {shared} B of shared memory")
+    return max(1, min(lib.dense_grouped_sums_max_cols(), fit))
+
+
 def _launch(gids: torch.Tensor, live: torch.Tensor,
             values: List[torch.Tensor], num_groups: int):
+    """One kernel launch per chunk of value columns (one for every input
+    of the main path); the counts come from the first launch."""
     global launch_count
     lib = _load()
     dev = gids.device
@@ -99,25 +117,29 @@ def _launch(gids: torch.Tensor, live: torch.Tensor,
         _check(f"values[{j}]", v, torch.int64, n, dev)
     if num_groups <= 0:
         raise ExecutionError(f"num_groups must be positive, got {num_groups}")
-    if k > lib.dense_grouped_sums_max_cols():
-        raise ExecutionError(
-            f"{k} value columns exceed the kernel's "
-            f"{lib.dense_grouped_sums_max_cols()}")
-    out = torch.zeros((num_groups, k + 1), dtype=torch.int64, device=dev)
+    per = _columns_per_launch(lib, dev, k, num_groups)
+    chunks = [values[i:i + per] for i in range(0, k, per)] or [[]]
+    outs = [torch.zeros((num_groups, len(c) + 1), dtype=torch.int64,
+                        device=dev) for c in chunks]
     if n > 0:
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         blocks = max(1, min(-(-n // THREADS), sms * BLOCKS_PER_SM))
-        ptrs = (ctypes.c_void_p * max(k, 1))(*[v.data_ptr() for v in values])
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.dense_grouped_sums_launch(
-                gids.data_ptr(), live.data_ptr(), ptrs, n, k, num_groups,
-                out.data_ptr(), blocks, THREADS, stream)
-        if err != 0:
-            raise ExecutionError(
-                f"dense_grouped_sums kernel launch failed: CUDA error {err}")
-        launch_count += 1
-    return [out[:, j] for j in range(k)], out[:, k]
+            for cols, out in zip(chunks, outs):
+                ptrs = (ctypes.c_void_p * max(len(cols), 1))(
+                    *[v.data_ptr() for v in cols])
+                err = lib.dense_grouped_sums_launch(
+                    gids.data_ptr(), live.data_ptr(), ptrs, n, len(cols),
+                    num_groups, out.data_ptr(), blocks, THREADS, stream)
+                if err != 0:
+                    raise ExecutionError(
+                        f"dense_grouped_sums kernel launch failed: "
+                        f"CUDA error {err}")
+                launch_count += 1
+    sums = [out[:, j] for cols, out in zip(chunks, outs)
+            for j in range(len(cols))]
+    return sums, outs[0][:, -1]
 
 
 def dense_grouped_sums_reference(

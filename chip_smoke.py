@@ -9,26 +9,29 @@ non-zero exit):
 1. card: the name and power limit as nvidia-smi reports them;
 2. build: the CUDA kernel (nvcc, sm_90a) and the native scanner (g++)
    from the checkout's sources, both compilers started together;
-   then the set-up: TPC-H data (``benchmarks/tpch/datagen.py``) in
-   ``bench_data/sf<scale>``, reused while its ``.complete`` marker holds
-   the current ``DATAGEN_VERSION``;
+   then the set-up: TPC-H data at SF1 (``benchmarks/tpch/datagen.py``)
+   in ``bench_data/sf1``, reused while its ``.complete`` marker holds the
+   current ``DATAGEN_VERSION``;
 3. kernel check: ``dense_grouped_sums`` against its plain torch version,
    bit for bit, at q1's partial-aggregate shape (N = the scan's slot
-   count, G = 6, K = 7, 2% dead rows) and at G = 256 with validity-mask
-   columns, a ragged N and full-range values that wrap; each timed with
-   CUDA events beside the plain version and one ``index_add_`` call;
+   count, G = 6, K = 7, even groups, 2% dead rows), at G = 256 with
+   validity-mask columns, a ragged N and full-range values that wrap, and
+   at K = 100 (two launches, each opting into more than 48 KB of shared
+   memory); the first two timed with CUDA events beside the plain version
+   and one ``index_add_`` call;
 4. TPC-H q1 and q6 through ``BallistaContext.standalone()`` on "cuda":
    the kernel's launch count is reset just before and read just after
    each q1 collect (>= 2 launches: partial and final aggregate); the
-   kernel is held against its plain version on the inputs the main path
-   gave it; results must equal the port on the CPU and an integer numpy
-   group-by of the scanned columns, exactly;
-5. the kernel list, as one JSON line.
+   kernel is held against its plain version on the inputs q1's partial
+   aggregate gave it, and timed there; results must equal the port on
+   the CPU and an integer numpy group-by of the scanned columns, exactly;
+5. the kernel list, as one JSON line; its times are those on the main
+   path's inputs.
 
-The last line of standard output is ``{"ok": true, "device": {...}}``.
-Options: ``--scale`` (TPC-H scale factor, default 1); ``--profile`` (one
-more warm q1 collect under ``torch.profiler``: device time by kernel and
-the operators' metrics).
+It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
+card 0. The last line of standard output is ``{"ok": true, "device":
+{...}}``. Option: ``--profile`` (one more warm q1 collect under
+``torch.profiler``: device time by kernel and the operators' metrics).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 QUERY_DIR = os.path.join("benchmarks", "tpch", "queries")
+SCALE = 1.0  # TPC-H scale factor: lineitem holds about 6.0 M rows
 
 
 def log(msg: str) -> None:
@@ -71,9 +75,19 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # -- phase 1 ----------------------------------------------------------------
 
 
-def phase_card() -> str:
+def use_one_card() -> str:
+    """Makes the first card ``CUDA_VISIBLE_DEVICES`` lists (card 0 when
+    unset) the only one this process sees, before CUDA starts, and
+    returns its id; an empty list stays empty and shows no card."""
+    card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
+    os.environ["CUDA_DEVICE_ORDER"] = "PCI_BUS_ID"  # nvidia-smi's order
+    os.environ["CUDA_VISIBLE_DEVICES"] = card
+    return card
+
+
+def phase_card(card: str) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", card, "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
@@ -111,22 +125,22 @@ def phase_build() -> None:
         raise errors[0]
 
 
-def setup_data(scale: float) -> str:
+def setup_data() -> str:
     from benchmarks.tpch import datagen
 
-    data_dir = os.path.join("bench_data", f"sf{scale:g}")
+    data_dir = os.path.join("bench_data", f"sf{SCALE:g}")
     marker = os.path.join(data_dir, ".complete")
     want = f"v{datagen.DATAGEN_VERSION}"
     have = open(marker).read().strip() if os.path.exists(marker) else None
     if have != want:
         t0 = time.perf_counter()
-        datagen.generate(data_dir, scale=scale, num_parts=1)
+        datagen.generate(data_dir, scale=SCALE, num_parts=1)
         with open(marker, "w") as f:
             f.write(want)
-        log(f"# set-up: generated TPC-H sf{scale:g} in "
+        log(f"# set-up: generated TPC-H sf{SCALE:g} in "
             f"{time.perf_counter() - t0:.1f}s")
     else:
-        log(f"# set-up: reusing TPC-H sf{scale:g} ({want})")
+        log(f"# set-up: reusing TPC-H sf{SCALE:g} ({want})")
     return data_dir
 
 
@@ -208,14 +222,14 @@ def phase_kernel_check(rows: int):
     rng = np.random.default_rng(1)
     dev = torch.device("cuda")
 
-    # case 1: q1's partial shape
+    # case 1: q1's partial shape, rows spread evenly over the groups
     n, g, k = q1_partial_slots(rows), 6, 7
     gids = torch.from_numpy(rng.integers(0, g, n, dtype=np.int32)).to(dev)
     live = torch.from_numpy(rng.random(n) >= 0.02).to(dev)
     values = [torch.from_numpy(rng.integers(0, 10 ** 12, n)).to(dev)
               for _ in range(k)]
-    q1_shape = check_kernel(gids, live, values, g, "q1 partial shape",
-                            timed=True)
+    q1_shape = check_kernel(gids, live, values, g,
+                            "q1 partial shape, even groups", timed=True)
     del gids, live, values
 
     # case 2: G = 256, 4 sums + 2 validity masks as 0/1 columns (the
@@ -232,14 +246,14 @@ def phase_kernel_check(rows: int):
     values += [m.to(torch.int64) for m in masks]
     check_kernel(gids, live, values, g, "G=256 wrapping", timed=True)
 
-    # case 3: G * (K+1) too large for the block's shared memory: the
-    # kernel's global-atomics variant
-    n, g, k = 200_003, 256, 40
+    # case 3: more value columns than one launch takes (two launches), each
+    # with [G, K+1] accumulators above the default 48 KB of shared memory
+    n, g, k = 200_003, 256, 100
     gids = torch.from_numpy(rng.integers(-3, g + 3, n, dtype=np.int32)).to(dev)
     live = torch.from_numpy(rng.random(n) < 0.9).to(dev)
     values = [torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n)).to(dev)
               for _ in range(k)]
-    check_kernel(gids, live, values, g, "global-atomics variant", timed=False)
+    check_kernel(gids, live, values, g, "K=100, two launches", timed=False)
     return q1_shape
 
 
@@ -390,11 +404,12 @@ def phase_queries(data_dir: str):
         assert_equal_results(f"{q} warm vs cold", results[(q, "warm")],
                              results[(q, "cold")])
 
-    # the kernel on the exact inputs the main path gave it
+    # the kernel on the exact inputs q1's partial aggregate gave it
     if first_inputs is None:
         raise AssertionError("q1 never reached dense_grouped_sums")
     gids, live, values, g = first_inputs
-    check_kernel(gids, live, values, g, "main-path inputs", timed=False)
+    main_path = check_kernel(gids, live, values, g,
+                             "q1 partial, main-path inputs", timed=True)
     del first_inputs, gids, live, values
 
     # the same queries through the port on the CPU
@@ -408,7 +423,7 @@ def phase_queries(data_dir: str):
         assert_equal_results(f"{q} cuda vs numpy", got, ref[q])
         log(f"# {q}: cuda == port on cpu == numpy group-by "
             f"({len(next(iter(got.values())))} rows)")
-    return timings, launches, sorted(set(spy_shapes)), rows
+    return timings, launches, sorted(set(spy_shapes)), main_path
 
 
 def profile_q1(data_dir: str) -> None:
@@ -453,24 +468,22 @@ def profile_q1(data_dir: str) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm q1 collect")
     args = ap.parse_args()
+    card_id = use_one_card()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    card = phase_card()
+    card = phase_card(card_id)
     phase_build()
-    data_dir = setup_data(args.scale)
-    rows = lineitem_rows(data_dir)
-    q1_shape = phase_kernel_check(rows)
-    timings, launches, shapes, rows = phase_queries(data_dir)
-    partial_n = max(n for n, _, _ in shapes)
-    if partial_n != q1_shape["n"]:
+    data_dir = setup_data()
+    q1_shape = phase_kernel_check(lineitem_rows(data_dir))
+    timings, launches, shapes, main_path = phase_queries(data_dir)
+    if main_path["n"] != q1_shape["n"]:
         raise AssertionError(f"phase 3 timed N={q1_shape['n']} but q1's "
-                             f"partial aggregate ran at N={partial_n}")
+                             f"partial aggregate ran at N={main_path['n']}")
     log(f"# main-path kernel shapes (N, K, G): {shapes}")
     if args.profile:
         profile_q1(data_dir)
@@ -482,14 +495,15 @@ def main() -> int:
         "replaces": "ballista_tpu/kernels/pallas_agg.py:78",
         "launches": launches[0],
         "matched": True,
-        "max_abs_err": q1_shape["max_abs_err"],
-        "ms": q1_shape["ms"],
-        "plain_ms": q1_shape["plain_ms"],
-        "bound_ms": q1_shape["bound_ms"],
-        "bound_by": q1_shape["bound_by"],
-        "library_ms": q1_shape["library_ms"],
-        "shape": {"n": q1_shape["n"], "k": q1_shape["k"],
-                  "g": q1_shape["g"]},
+        "max_abs_err": main_path["max_abs_err"],
+        "ms": main_path["ms"],
+        "plain_ms": main_path["plain_ms"],
+        "bound_ms": main_path["bound_ms"],
+        "bound_by": main_path["bound_by"],
+        "library_ms": main_path["library_ms"],
+        "shape": {"n": main_path["n"], "k": main_path["k"],
+                  "g": main_path["g"]},
+        "even_groups_ms": q1_shape["ms"],
     }]
     log(f"# card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

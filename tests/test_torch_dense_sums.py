@@ -124,6 +124,36 @@ def test_cuda_kernel_equals_plain_version():
         assert torch.equal(got_c, want_c), case
 
 
+class _FakeLib:
+    """The kernel library's limits as an H100 reports them."""
+
+    @staticmethod
+    def dense_grouped_sums_max_cols():
+        return 64
+
+    @staticmethod
+    def dense_grouped_sums_max_shared_bytes(device):
+        return 232448  # 227 KB opt-in shared memory per block
+
+
+@pytest.mark.parametrize("k,groups,per", [
+    (7, 6, 64),  # q1's partial aggregate: one launch
+    (100, 256, 64),  # wider than one launch: two launches
+    (100, 1024, 27),  # accumulators cap the columns per launch
+    (0, 20000, 1),  # counts only
+])
+def test_columns_per_launch(k, groups, per):
+    assert ds._columns_per_launch(_FakeLib, torch.device("cuda", 0), k,
+                                  groups) == per
+    # every launch's [G, cols+1] int64 accumulators fit the shared memory
+    assert groups * (min(per, k) + 1) * 8 <= 232448 or k == 0
+
+
+def test_columns_per_launch_rejects_groups_that_do_not_fit():
+    with pytest.raises(ExecutionError, match="shared memory"):
+        ds._columns_per_launch(_FakeLib, torch.device("cuda", 0), 1, 20000)
+
+
 def test_wrapper_counts_no_launch_on_cpu_and_rejects_other_devices():
     before = ds.launch_count
     ds.dense_grouped_sums(torch.zeros(4, dtype=torch.int32),
