@@ -170,8 +170,9 @@ def _dense_grouped_torch(
 
 
 def _dense_grouped_sums(gids, live, aggs, num_groups) -> GroupedResult:
-    """Integer sums/counts through ``dense_grouped_sums``; representatives
-    by a scatter-min. Counterpart of the JAX ``_dense_grouped_pallas``.
+    """Integer sums/counts and representatives (each group's first live
+    row) through ``dense_grouped_sums``, in one pass. Counterpart of the
+    JAX ``_dense_grouped_pallas``.
 
     Validity handling happens BEFORE the kernel: masked-out sum inputs
     are zeroed (sum semantics), and each validity-masked aggregate gets
@@ -206,18 +207,12 @@ def _dense_grouped_sums(gids, live, aggs, num_groups) -> GroupedResult:
             plan.append(("sum", len(values), vcol))
             values.append(v.contiguous())
 
-    sums, counts = dense_grouped_sums(gids.to(torch.int32).contiguous(),
-                                      live.contiguous(), values, num_groups)
-    dev = gids.device
-    g = num_groups
-    # segment_min over gids: JAX's drops out-of-range ids, here they go to
-    # the trash slot; an empty group gets n - 1, as in the JAX package
-    ok = (gids >= 0) & (gids < g)
-    slot = torch.where(ok, gids.to(torch.int64), g)
-    pos = torch.where(live, torch.arange(n, dtype=torch.int64, device=dev), n)
-    first = torch.full((g + 1,), n, dtype=torch.int64, device=dev)
-    first.scatter_reduce_(0, slot, pos, reduce="amin")
-    rep_indices = torch.clamp(first[:g], max=max(n - 1, 0)).to(torch.int32)
+    sums, counts, first = dense_grouped_sums(
+        gids.to(torch.int32).contiguous(), live.contiguous(), values,
+        num_groups)
+    # first is the JAX package's segment_min with N for a group without a
+    # live row; such a group gets n - 1, as in the JAX package
+    rep_indices = torch.clamp(first, max=max(n - 1, 0)).to(torch.int32)
     group_valid = counts > 0
     num_present = group_valid.sum(dtype=torch.int32)
     results: List[torch.Tensor] = []

@@ -13,20 +13,25 @@ non-zero exit):
    in ``bench_data/sf1``, reused while its ``.complete`` marker holds the
    current ``DATAGEN_VERSION``;
 3. kernel check: ``dense_grouped_sums`` against its plain torch version,
-   bit for bit, at q1's partial-aggregate shape (N = the scan's slot
-   count, G = 6, K = 7, even groups, 2% dead rows), at G = 256 with
-   validity-mask columns, a ragged N and full-range values that wrap, and
-   at K = 100 (two launches, each opting into more than 48 KB of shared
-   memory); the first two timed with CUDA events beside the plain version
-   and one ``index_add_`` call;
+   bit for bit in all three outputs (sums, counts, first live rows), at
+   q1's partial-aggregate shape (N = the scan's slot count, G = 6, K = 7,
+   even groups, 2% dead rows); at G = 256 with validity-mask columns, a
+   ragged N and full-range values that wrap; with every live row in one
+   group at G = 6 and at G = 256 (the worst contention); with groups whose
+   first live row lies far beyond the first block's rows; on misaligned
+   views (``base[1:]`` of every column) with a ragged N, which run the
+   VEC = 1 instantiation; and at K = 100 (two launches, each opting into
+   more than 48 KB of shared memory). All but the last are timed with
+   CUDA events beside the plain version, one ``index_add_`` call and one
+   ``scatter_reduce_`` call that finds the first rows;
 4. TPC-H q1 and q6 through ``BallistaContext.standalone()`` on "cuda":
    the kernel's launch count is reset just before and read just after
    each q1 collect (>= 2 launches: partial and final aggregate); the
    kernel is held against its plain version on the inputs q1's partial
    aggregate gave it, and timed there; results must equal the port on
    the CPU and an integer numpy group-by of the scanned columns, exactly;
-5. the kernel list, as one JSON line; its times are those on the main
-   path's inputs.
+5. the kernel list, as one JSON line; its times, replicas and VEC are
+   those on the main path's inputs.
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -43,6 +48,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,19 +57,27 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 QUERY_DIR = os.path.join("benchmarks", "tpch", "queries")
 SCALE = 1.0  # TPC-H scale factor: lineitem holds about 6.0 M rows
+SLEEP_CYCLES = 40_000_000  # about 20 ms: longer than queueing 20 calls
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds of ``fn()`` on the card, by CUDA events."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3,
+            queued: bool = True) -> float:
+    """Mean milliseconds of ``fn()`` on the card, by CUDA events. With
+    ``queued``, a sleep on the card holds the stream while the host queues
+    every timed call, so the events time the device's work back to back.
+    Without it they time a call as its caller sees it: one shorter than
+    its host-side launch cost shows that cost instead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -157,36 +171,50 @@ def lineitem_rows(data_dir: str) -> int:
 def kernel_bound_ms(n_rows: int, n_live: int, k: int, g: int):
     """(bound_ms, bound_by): the larger of the bytes the function must
     move (gids 4 B, live 1 B and K int64 values per row read once, the
-    [G, K+1] int64 result written once) over the memory rate, and its
-    K+1 integer additions per live row over the float32 rate (the card
-    lists no int64 rate; integer adds are no faster)."""
-    nbytes = n_rows * (4 + 1 + 8 * k) + g * (k + 1) * 8
-    ops = n_live * (k + 1)
+    [G, K+1] int64 sums and [G] int64 first rows written once) over the
+    memory rate, and its K+1 integer additions and one comparison per
+    live row over the float32 rate (the card lists no int64 rate; integer
+    operations are no faster)."""
+    nbytes = n_rows * (4 + 1 + 8 * k) + g * (k + 2) * 8
+    ops = n_live * (k + 2)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / FP32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernel(gids, live, values, g: int, label: str, timed: bool):
-    """Kernel vs plain version on the same inputs, bit for bit; with
-    ``timed``, also the times. Returns a dict of the numbers."""
+def check_kernel(gids, live, values, g: int, label: str, timed: bool,
+                 vec: Optional[int] = 4):
+    """Kernel vs plain version on the same inputs, bit for bit in sums,
+    counts and first rows, after checking that the launch plan uses the
+    ``vec`` instantiation (any, when None); with ``timed``, also the
+    times. Returns a dict of the numbers."""
     from ballista_tpu_torch.kernels import dense_sums as ds
 
-    sums, counts = ds.dense_grouped_sums(gids, live, values, g)
+    plan = ds.launch_plan(gids, live, values, g)
+    if vec is not None and plan.vec != vec:
+        raise AssertionError(f"{label}: planned VEC = {plan.vec}, "
+                             f"expected {vec}")
+    sums, counts, first = ds.dense_grouped_sums(gids, live, values, g)
     torch.cuda.synchronize()
-    ref_sums, ref_counts = ds.dense_grouped_sums_reference(gids, live,
-                                                           values, g)
-    got = torch.stack(sums + [counts])
-    want = torch.stack(ref_sums + [ref_counts])
+    ref_sums, ref_counts, ref_first = ds.dense_grouped_sums_reference(
+        gids, live, values, g)
+    got = torch.stack(sums + [counts, first])
+    want = torch.stack(ref_sums + [ref_counts, ref_first])
     if not torch.equal(got, want):
         bad = int((got != want).sum())
         raise AssertionError(f"{label}: kernel differs from its plain "
-                             f"version in {bad} of {got.numel()} sums")
+                             f"version in {bad} of {got.numel()} results "
+                             f"(first rows {first.tolist()[:8]} vs "
+                             f"{ref_first.tolist()[:8]})")
     n, k = int(gids.shape[0]), len(values)
-    res = {"n": n, "k": k, "g": g, "max_abs_err": 0}  # bit-equal
+    res = {"n": n, "k": k, "g": g, "max_abs_err": 0,  # bit-equal
+           "vec": plan.vec, "replicas": plan.launches[0].replicas,
+           "blocks": plan.launches[0].blocks}
     if timed:
         res["ms"] = cuda_ms(lambda: ds.dense_grouped_sums(gids, live,
                                                           values, g))
+        res["call_ms"] = cuda_ms(lambda: ds.dense_grouped_sums(
+            gids, live, values, g), queued=False)
         res["plain_ms"] = cuda_ms(lambda: ds.dense_grouped_sums_reference(
             gids, live, values, g))
         # yardstick: ONE index_add_ over all K+1 columns, inputs prepared
@@ -197,13 +225,24 @@ def check_kernel(gids, live, values, g: int, label: str, timed: bool):
         acc = torch.zeros((g + 1, k + 1), dtype=torch.int64,
                           device=gids.device)
         res["library_ms"] = cuda_ms(lambda: acc.index_add_(0, slot, stacked))
-        del slot, stacked
-        n_live = int(live.sum())
+        # and ONE scatter_reduce_ that finds the first rows, as the port
+        # did before the kernel found them (the port never calls it)
+        pos = torch.arange(n, dtype=torch.int64, device=gids.device)
+        low = torch.full((g + 1,), n, dtype=torch.int64, device=gids.device)
+        res["first_row_ms"] = cuda_ms(
+            lambda: low.scatter_reduce_(0, slot, pos, reduce="amin"))
+        del slot, stacked, pos
+        n_live = int((live & (gids >= 0) & (gids < g)).sum())
         res["bound_ms"], res["bound_by"] = kernel_bound_ms(n, n_live, k, g)
-    log(f"# {label}: N={n} G={g} K={k} bit-equal to the plain version"
-        + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-           f"index_add_ {res['library_ms']:.4f} ms, bound "
-           f"{res['bound_ms']:.4f} ms ({res['bound_by']})" if timed else ""))
+    log(f"# {label}: N={n} G={g} K={k} bit-equal to the plain version "
+        f"(VEC={res['vec']}, R={res['replicas']}, {res['blocks']} blocks)"
+        + (f"; kernel {res['ms']:.4f} ms (a call with its host-side "
+           f"launch {res['call_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, "
+           f"index_add_ {res['library_ms']:.4f} ms, first-row "
+           f"scatter_reduce_ {res['first_row_ms']:.4f} ms, bound "
+           f"{res['bound_ms']:.4f} ms ({res['bound_by']}), "
+           f"{100 * res['bound_ms'] / res['ms']:.1f}% of the bound"
+           if timed else ""))
     return res
 
 
@@ -245,8 +284,48 @@ def phase_kernel_check(rows: int):
     values = [torch.where(masks[i % 2], v, 0) for i, v in enumerate(full)]
     values += [m.to(torch.int64) for m in masks]
     check_kernel(gids, live, values, g, "G=256 wrapping", timed=True)
+    del gids, live, full, masks, values
 
-    # case 3: more value columns than one launch takes (two launches), each
+    # cases 3 and 4: every live row in one group, the worst contention
+    n = q1_partial_slots(rows)
+    for g, k in ((6, 7), (256, 6)):
+        gids = torch.full((n,), g // 2, dtype=torch.int32, device=dev)
+        live = torch.from_numpy(rng.random(n) >= 0.02).to(dev)
+        values = [torch.from_numpy(rng.integers(0, 10 ** 12, n)).to(dev)
+                  for _ in range(k)]
+        check_kernel(gids, live, values, g, f"G={g}, one group", timed=True)
+        del gids, live, values
+
+    # case 5: first live rows far beyond the first block's rows: group 3's
+    # rows are dead before row n/2, group 5 appears only near the end, and
+    # group 4 never has a live row
+    n, g, k = q1_partial_slots(rows), 6, 7
+    gids_np = rng.integers(0, 4, n, dtype=np.int32)
+    gids_np[n - 1000:n - 10] = 5
+    gids_np[rng.random(n) < 0.01] = 4
+    live_np = rng.random(n) >= 0.02
+    live_np[(gids_np == 3) & (np.arange(n) < n // 2)] = False
+    live_np[gids_np == 4] = False
+    gids = torch.from_numpy(gids_np).to(dev)
+    live = torch.from_numpy(live_np).to(dev)
+    values = [torch.from_numpy(rng.integers(0, 10 ** 12, n)).to(dev)
+              for _ in range(k)]
+    check_kernel(gids, live, values, g, "late first rows", timed=True)
+    del gids, live, values, gids_np, live_np
+
+    # case 6: misaligned views (base[1:] of every column), ragged N: the
+    # VEC = 1 instantiation
+    n, g, k = q1_partial_slots(rows) - 3, 6, 7
+    gids = torch.from_numpy(rng.integers(0, g, n + 1,
+                                         dtype=np.int32)).to(dev)[1:]
+    live = torch.from_numpy(rng.random(n + 1) >= 0.02).to(dev)[1:]
+    values = [torch.from_numpy(rng.integers(0, 10 ** 12, n + 1)).to(dev)[1:]
+              for _ in range(k)]
+    check_kernel(gids, live, values, g, "misaligned, ragged", timed=True,
+                 vec=1)
+    del gids, live, values
+
+    # case 7: more value columns than one launch takes (two launches), each
     # with [G, K+1] accumulators above the default 48 KB of shared memory
     n, g, k = 200_003, 256, 100
     gids = torch.from_numpy(rng.integers(-3, g + 3, n, dtype=np.int32)).to(dev)
@@ -409,7 +488,8 @@ def phase_queries(data_dir: str):
         raise AssertionError("q1 never reached dense_grouped_sums")
     gids, live, values, g = first_inputs
     main_path = check_kernel(gids, live, values, g,
-                             "q1 partial, main-path inputs", timed=True)
+                             "q1 partial, main-path inputs", timed=True,
+                             vec=None)
     del first_inputs, gids, live, values
 
     # the same queries through the port on the CPU
@@ -497,10 +577,14 @@ def main() -> int:
         "matched": True,
         "max_abs_err": main_path["max_abs_err"],
         "ms": main_path["ms"],
+        "call_ms": main_path["call_ms"],
         "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"],
         "bound_by": main_path["bound_by"],
         "library_ms": main_path["library_ms"],
+        "first_row_ms": main_path["first_row_ms"],
+        "replicas": main_path["replicas"],
+        "vec": main_path["vec"],
         "shape": {"n": main_path["n"], "k": main_path["k"],
                   "g": main_path["g"]},
         "even_groups_ms": q1_shape["ms"],
