@@ -143,11 +143,9 @@ def _columns_per_launch(lib, device: int, k: int, num_groups: int) -> int:
     return max(1, min(lib.dense_grouped_sums_max_cols(), fit))
 
 
-@functools.lru_cache(maxsize=256)
-def _blocks_per_sm(lib, device: int, vec: int, nbytes: int) -> int:
+def _blocks_per_sm(lib, vec: int, nbytes: int) -> int:
     """Blocks of the ``vec`` instantiation with ``nbytes`` of shared memory
-    that fit one SM of ``device`` at once. Cached: the occupancy query
-    costs more host time than a small launch."""
+    that fit one SM of the current device at once."""
     occ = lib.dense_grouped_sums_blocks_per_sm(vec, THREADS, nbytes)
     if occ < 0:
         raise ExecutionError(
@@ -155,17 +153,19 @@ def _blocks_per_sm(lib, device: int, vec: int, nbytes: int) -> int:
     return occ
 
 
+@functools.lru_cache(maxsize=256)
 def _replicas(lib, device: int, vec: int, words: int,
               limit: int) -> Tuple[int, int]:
     """(replicas, blocks per SM): the most replicas of ``words`` int64
     accumulators that still let ``BLOCKS_PER_SM_WANTED`` blocks share an
-    SM, else the most that fit at all."""
+    SM, else the most that fit at all. Cached: the occupancy queries cost
+    more host time than a small launch."""
     best = None
     r = MAX_REPLICAS
     while r >= 1:
         nbytes = words * r * 8
         if nbytes <= limit:
-            occ = _blocks_per_sm(lib, device, vec, nbytes)
+            occ = _blocks_per_sm(lib, vec, nbytes)
             if occ >= BLOCKS_PER_SM_WANTED:
                 return r, occ
             if occ >= 1 and best is None:
@@ -186,12 +186,17 @@ def plan_launches(lib, device: int, sms: int, n: int, num_groups: int,
     else 1; the columns in chunks whose accumulators fit a block; for each
     chunk the replicas and a persistent grid sized by occupancy. Only the
     first launch finds the first rows."""
-    if num_groups <= 0:
-        raise ExecutionError(f"num_groups must be positive, got {num_groups}")
-    k = len(value_ptrs)
     aligned = (gids_ptr % 16 == 0 and live_ptr % 4 == 0
                and all(p % 16 == 0 for p in value_ptrs))
-    vec = VEC if aligned else 1
+    return _plan(lib, device, sms, n, num_groups, len(value_ptrs),
+                 VEC if aligned else 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan(lib, device: int, sms: int, n: int, num_groups: int, k: int,
+          vec: int) -> LaunchPlan:
+    if num_groups <= 0:
+        raise ExecutionError(f"num_groups must be positive, got {num_groups}")
     per = _columns_per_launch(lib, device, k, num_groups)
     limit = lib.dense_grouped_sums_max_shared_bytes(device)
     rows_per_block = THREADS * vec
@@ -206,17 +211,24 @@ def plan_launches(lib, device: int, sms: int, n: int, num_groups: int,
     return LaunchPlan(vec, tuple(launches))
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan_on_current_device(gids, live, values, num_groups) -> LaunchPlan:
+    index = gids.device.index
+    return plan_launches(_load(), index, _sm_count(index),
+                         int(gids.shape[0]), num_groups, gids.data_ptr(),
+                         live.data_ptr(), [v.data_ptr() for v in values])
+
+
 def launch_plan(gids: torch.Tensor, live: torch.Tensor,
                 values: Sequence[torch.Tensor],
                 num_groups: int) -> LaunchPlan:
     """``plan_launches`` for these CUDA tensors on their card."""
-    dev = gids.device
-    with torch.cuda.device(dev):
-        return plan_launches(
-            _load(), dev.index,
-            torch.cuda.get_device_properties(dev).multi_processor_count,
-            int(gids.shape[0]), num_groups, gids.data_ptr(), live.data_ptr(),
-            [v.data_ptr() for v in values])
+    with torch.cuda.device(gids.device):
+        return _plan_on_current_device(gids, live, values, num_groups)
 
 
 def _launch(gids: torch.Tensor, live: torch.Tensor,
@@ -230,13 +242,14 @@ def _launch(gids: torch.Tensor, live: torch.Tensor,
     _check("live", live, torch.bool, n, dev)
     for j, v in enumerate(values):
         _check(f"values[{j}]", v, torch.int64, n, dev)
-    plan = launch_plan(gids, live, values, num_groups)
-    outs = [torch.zeros((num_groups, spec.hi - spec.lo + 1), dtype=torch.int64,
-                        device=dev) for spec in plan.launches]
-    first = torch.full((num_groups,), n, dtype=torch.int64, device=dev)
-    if n > 0:
-        lib = _load()
-        with torch.cuda.device(dev):
+    with torch.cuda.device(dev):
+        plan = _plan_on_current_device(gids, live, values, num_groups)
+        outs = [torch.zeros((num_groups, spec.hi - spec.lo + 1),
+                            dtype=torch.int64, device=dev)
+                for spec in plan.launches]
+        first = torch.full((num_groups,), n, dtype=torch.int64, device=dev)
+        if n > 0:
+            lib = _load()
             stream = torch.cuda.current_stream(dev).cuda_stream
             for spec, out in zip(plan.launches, outs):
                 cols = values[spec.lo:spec.hi]

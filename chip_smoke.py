@@ -20,16 +20,22 @@ non-zero exit):
    group at G = 6 and at G = 256 (the worst contention); with groups whose
    first live row lies far beyond the first block's rows; on misaligned
    views (``base[1:]`` of every column) with a ragged N, which run the
-   VEC = 1 instantiation; and at K = 100 (two launches, each opting into
-   more than 48 KB of shared memory). All but the last are timed with
-   CUDA events beside the plain version, one ``index_add_`` call and one
-   ``scatter_reduce_`` call that finds the first rows;
+   VEC = 1 instantiation; at the final aggregate's K = 12 with six rows
+   and with a ragged N; and at K = 100 (two launches, each opting into
+   more than 48 KB of shared memory). The first six are timed beside the
+   plain version, one ``index_add_`` call and one ``scatter_reduce_``
+   call that finds the first rows: each call by its own CUDA events after
+   a 256 MB write has flushed the L2 cache, the host's launch hidden
+   behind a sleep on the card (``ms``) or not (``call_ms``);
 4. TPC-H q1 and q6 through ``BallistaContext.standalone()`` on "cuda":
    the kernel's launch count is reset just before and read just after
    each q1 collect (>= 2 launches: partial and final aggregate); the
-   kernel is held against its plain version on the inputs q1's partial
-   aggregate gave it, and timed there; results must equal the port on
-   the CPU and an integer numpy group-by of the scanned columns, exactly;
+   kernel is held against its plain version on the inputs of every call
+   q1's cold collect made (partial and final aggregate), the partial's
+   timed, and again on a misaligned copy of the partial's inputs (the
+   VEC = 1 instantiation, timed as ``vec1_ms``); results must equal the
+   port on the CPU and an integer numpy group-by of the scanned columns,
+   exactly;
 5. the kernel list, as one JSON line; its times, replicas and VEC are
    those on the main path's inputs.
 
@@ -57,33 +63,41 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 QUERY_DIR = os.path.join("benchmarks", "tpch", "queries")
 SCALE = 1.0  # TPC-H scale factor: lineitem holds about 6.0 M rows
-SLEEP_CYCLES = 40_000_000  # about 20 ms: longer than queueing 20 calls
+HOLD_CYCLES = 4_000_000  # about 2 ms: longer than queueing one call
+FLUSH_BYTES = 256 << 20  # written before every timed call: 5x the 50 MB L2
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3,
-            queued: bool = True) -> float:
-    """Mean milliseconds of ``fn()`` on the card, by CUDA events. With
-    ``queued``, a sleep on the card holds the stream while the host queues
-    every timed call, so the events time the device's work back to back.
-    Without it they time a call as its caller sees it: one shorter than
-    its host-side launch cost shows that cost instead."""
+def cuda_ms(fn, iters: int = 20, warmup: int = 3, hold: bool = True) -> float:
+    """Mean milliseconds of one ``fn()`` call on the card, each call timed
+    by its own pair of CUDA events after a write of ``FLUSH_BYTES`` has
+    evicted its inputs from the L2 cache, as a caller whose inputs another
+    operator just produced finds it. With ``hold``, a sleep on the card
+    holds the stream while the host queues the call, so the events time
+    the device's work; without it, the card waits for the host, and the
+    events time the call as its caller sees it, host-side launch
+    included."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    if queued:
-        torch.cuda._sleep(SLEEP_CYCLES)
-    start.record()
+    times = []
     for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        flush.zero_()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
+        else:
+            torch.cuda.synchronize()
+        start.record()
         fn()
-    end.record()
+        end.record()
+        times.append((start, end))
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    return sum(s.elapsed_time(e) for s, e in times) / iters
 
 
 # -- phase 1 ----------------------------------------------------------------
@@ -214,7 +228,7 @@ def check_kernel(gids, live, values, g: int, label: str, timed: bool,
         res["ms"] = cuda_ms(lambda: ds.dense_grouped_sums(gids, live,
                                                           values, g))
         res["call_ms"] = cuda_ms(lambda: ds.dense_grouped_sums(
-            gids, live, values, g), queued=False)
+            gids, live, values, g), hold=False)
         res["plain_ms"] = cuda_ms(lambda: ds.dense_grouped_sums_reference(
             gids, live, values, g))
         # yardstick: ONE index_add_ over all K+1 columns, inputs prepared
@@ -236,8 +250,8 @@ def check_kernel(gids, live, values, g: int, label: str, timed: bool,
         res["bound_ms"], res["bound_by"] = kernel_bound_ms(n, n_live, k, g)
     log(f"# {label}: N={n} G={g} K={k} bit-equal to the plain version "
         f"(VEC={res['vec']}, R={res['replicas']}, {res['blocks']} blocks)"
-        + (f"; kernel {res['ms']:.4f} ms (a call with its host-side "
-           f"launch {res['call_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, "
+        + (f"; kernel {res['ms']:.4f} ms (with its host-side launch "
+           f"{res['call_ms']:.4f} ms), plain {res['plain_ms']:.4f} ms, "
            f"index_add_ {res['library_ms']:.4f} ms, first-row "
            f"scatter_reduce_ {res['first_row_ms']:.4f} ms, bound "
            f"{res['bound_ms']:.4f} ms ({res['bound_by']}), "
@@ -325,7 +339,19 @@ def phase_kernel_check(rows: int):
                  vec=1)
     del gids, live, values
 
-    # case 7: more value columns than one launch takes (two launches), each
+    # case 7: the final aggregate's width (K = 12, R = 32): six rows (one
+    # four-row step and a ragged tail of two), and a ragged N over many
+    # blocks
+    g, k = 6, 12
+    for n in (6, 1_000_002):
+        gids = torch.from_numpy(rng.integers(0, g, n, dtype=np.int32)).to(dev)
+        live = torch.from_numpy(rng.random(n) >= 0.02).to(dev)
+        values = [torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n))
+                  .to(dev) for _ in range(k)]
+        check_kernel(gids, live, values, g, f"K=12, N={n}", timed=False)
+        del gids, live, values
+
+    # case 8: more value columns than one launch takes (two launches), each
     # with [G, K+1] accumulators above the default 48 KB of shared memory
     n, g, k = 200_003, 256, 100
     gids = torch.from_numpy(rng.integers(-3, g + 3, n, dtype=np.int32)).to(dev)
@@ -340,21 +366,18 @@ def phase_kernel_check(rows: int):
 
 
 class KernelInputSpy:
-    """Records the shapes the main path hands ``dense_grouped_sums`` and
-    keeps the first call's inputs, to hold the kernel against its plain
-    version on exactly those afterwards. Counts nothing."""
+    """Records the inputs the main path hands ``dense_grouped_sums``, call
+    by call, to hold the kernel against its plain version on exactly those
+    afterwards. Counts nothing."""
 
     def __init__(self, module):
         self.module = module
         self.real = module.dense_grouped_sums
-        self.shapes = []
-        self.first = None
+        self.calls = []
 
     def __enter__(self):
         def spy(gids, live, values, num_groups):
-            self.shapes.append((int(gids.shape[0]), len(values), num_groups))
-            if self.first is None:
-                self.first = (gids, live, list(values), num_groups)
+            self.calls.append((gids, live, list(values), num_groups))
             return self.real(gids, live, values, num_groups)
 
         self.module.dense_grouped_sums = spy
@@ -362,6 +385,14 @@ class KernelInputSpy:
 
     def __exit__(self, *exc):
         self.module.dense_grouped_sums = self.real
+
+
+def misaligned_copy(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied to ``base[1:]`` of a one-longer tensor: off the 16-byte
+    (int32, int64) and 4-byte (bool) alignment of an allocation."""
+    base = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    base[1:].copy_(t)
+    return base[1:]
 
 
 def numpy_reference(data_dir: str):
@@ -453,8 +484,7 @@ def phase_queries(data_dir: str):
     ctx = BallistaContext.standalone()  # device="cuda"
     register_tpch(ctx, data_dir, tables=["lineitem"])
     results, timings, launches = {}, {}, []
-    spy_shapes = []
-    first_inputs = None
+    spy_shapes, main_calls = [], []
     for q in ("q1", "q6"):
         for run in ("cold", "warm"):
             df = ctx.sql(sqls[q])
@@ -466,9 +496,10 @@ def phase_queries(data_dir: str):
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
                 n_launch = ds.launch_count
-            spy_shapes.extend(spy.shapes)
-            if first_inputs is None and spy.first is not None:
-                first_inputs = spy.first
+            spy_shapes += [(int(c[0].shape[0]), len(c[2]), c[3])
+                           for c in spy.calls]
+            if q == "q1" and run == "cold":
+                main_calls = spy.calls
             if q == "q1":
                 launches.append(n_launch)
                 if n_launch < 2:
@@ -483,14 +514,25 @@ def phase_queries(data_dir: str):
         assert_equal_results(f"{q} warm vs cold", results[(q, "warm")],
                              results[(q, "cold")])
 
-    # the kernel on the exact inputs q1's partial aggregate gave it
-    if first_inputs is None:
-        raise AssertionError("q1 never reached dense_grouped_sums")
-    gids, live, values, g = first_inputs
-    main_path = check_kernel(gids, live, values, g,
-                             "q1 partial, main-path inputs", timed=True,
-                             vec=None)
-    del first_inputs, gids, live, values
+    # the kernel on the exact inputs of every call in q1's cold collect
+    # (partial and final aggregate); the first, the partial one, is timed
+    if len(main_calls) < 2:
+        raise AssertionError(f"q1 called dense_grouped_sums "
+                             f"{len(main_calls)} times, expected >= 2")
+    checked = [check_kernel(gids, live, values, g,
+                            f"q1 main-path call {i + 1} of {len(main_calls)}",
+                            timed=i == 0, vec=None)
+               for i, (gids, live, values, g) in enumerate(main_calls)]
+    main_path = checked[0]
+    # the partial aggregate's inputs again, off the vector alignment: the
+    # VEC = 1 instantiation on the same rows
+    gids, live, values, g = main_calls[0]
+    off = [misaligned_copy(t) for t in [gids, live] + values]
+    vec1 = check_kernel(off[0], off[1], off[2:], g,
+                        "q1 main-path call 1, misaligned copy", timed=True,
+                        vec=1)
+    main_path["vec1_ms"] = vec1["ms"]
+    del main_calls, gids, live, values, off
 
     # the same queries through the port on the CPU
     cpu = BallistaContext.standalone(device="cpu")
@@ -588,6 +630,7 @@ def main() -> int:
         "shape": {"n": main_path["n"], "k": main_path["k"],
                   "g": main_path["g"]},
         "even_groups_ms": q1_shape["ms"],
+        "vec1_ms": main_path["vec1_ms"],
     }]
     log(f"# card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -312,6 +312,28 @@ def test_launch_plan_gives_up_replicas_for_occupancy():
     assert [(s.replicas, s.blocks) for s in plan.launches] == [(1, 396)]
 
 
+def test_launch_plan_is_cached_per_shape():
+    class Counting(_FakeLib):
+        queries = 0
+
+        @classmethod
+        def dense_grouped_sums_blocks_per_sm(cls, vec, threads, shared_bytes):
+            cls.queries += 1
+            return super().dense_grouped_sums_blocks_per_sm(vec, threads,
+                                                            shared_bytes)
+
+    args = (Counting, 0, SMS, 6291456, 6, *ALIGNED[:2], ALIGNED[2][:7])
+    plan = ds.plan_launches(*args)
+    queried = Counting.queries
+    assert queried >= 1
+    assert ds.plan_launches(*args) is plan
+    # another N plans anew but asks the card nothing more
+    other = ds.plan_launches(Counting, 0, SMS, 1000, 6, *ALIGNED[:2],
+                             ALIGNED[2][:7])
+    assert Counting.queries == queried
+    assert [(s.replicas, s.blocks) for s in other.launches] == [(32, 1)]
+
+
 def test_wrapper_counts_no_launch_on_cpu_and_rejects_other_devices():
     before = ds.launch_count
     ds.dense_grouped_sums(torch.zeros(4, dtype=torch.int32),
