@@ -179,9 +179,14 @@ class BallistaContext:
 
         if phys is None:
             phys = plan_logical(plan, self._planner_options())
-        for node in _plan_nodes(phys):  # report THIS run's metrics
+        nodes = _plan_nodes(phys)
+        for node in nodes:  # report THIS run's metrics
             node.metrics().reset()
-        return collect_physical(phys), phys
+        try:
+            return collect_physical(phys), phys
+        finally:
+            for node in nodes:
+                node.release()
 
 
 def _plan_nodes(plan) -> list:

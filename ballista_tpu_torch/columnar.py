@@ -30,6 +30,10 @@ from .errors import ExecutionError, SchemaError
 # Default physical batch capacity (rows), as in the JAX package.
 DEFAULT_BATCH_CAPACITY = 1 << 20
 
+# FNV-1a constants (stable_hashes)
+_FNV_OFFSET = np.uint64(0xCBF29CE484222325)
+_FNV_PRIME = np.uint64(0x100000001B3)
+
 DeviceLike = Union[str, torch.device]
 
 
@@ -64,12 +68,13 @@ class Dictionary:
     Comparison kernels assume the values are sorted and duplicate-free.
     """
 
-    __slots__ = ("values", "_index", "_str_cache")
+    __slots__ = ("values", "_index", "_str_cache", "_hash_cache")
 
     def __init__(self, values: Sequence[str]):
         self.values: np.ndarray = np.asarray(list(values), dtype=object)
         self._index: Dict[str, int] = {v: i for i, v in enumerate(self.values)}
         self._str_cache: Optional[np.ndarray] = None
+        self._hash_cache: Optional[np.ndarray] = None
 
     def __len__(self) -> int:
         return len(self.values)
@@ -105,6 +110,39 @@ class Dictionary:
         return (int(np.searchsorted(sv, s, side="left")),
                 int(np.searchsorted(sv, s, side="right")))
 
+    def stable_hashes(self) -> np.ndarray:
+        """int64 FNV-1a hash of each value's UTF-8 bytes, cached. Stable
+        across processes and dictionary encodings, so hash partitioning of
+        a utf8 column places a string where the JAX package places it,
+        whatever its code. Values are hashed byte position by byte
+        position over all values at once; values whose trailing NULs the
+        fixed-width str view drops hash through the scalar loop."""
+        if self._hash_cache is not None:
+            return self._hash_cache
+        n = len(self.values)
+        h = np.full(n, _FNV_OFFSET, dtype=np.uint64)
+        sv = self.values_str()
+        if n:
+            enc = np.char.encode(sv, "utf-8")
+            width = enc.dtype.itemsize
+            if width:
+                mat = enc.view(np.uint8).reshape(n, width)
+                nz = mat != 0
+                lengths = np.where(nz.any(axis=1),
+                                   width - np.argmax(nz[:, ::-1], axis=1), 0)
+                for j in range(width):
+                    h = np.where(j < lengths, (h ^ mat[:, j]) * _FNV_PRIME, h)
+        out = h.astype(np.int64)
+        lens = np.fromiter((len(str(v)) for v in self.values),
+                           dtype=np.int64, count=n)
+        for i in np.nonzero(lens != np.char.str_len(sv))[0]:
+            hh = 0xCBF29CE484222325
+            for b in str(self.values[i]).encode("utf-8"):
+                hh = ((hh ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+            out[i] = np.int64(np.uint64(hh))
+        self._hash_cache = out
+        return out
+
     @staticmethod
     def canonicalize(values: Sequence[str]) -> Tuple["Dictionary", np.ndarray]:
         """Sorted-unique dictionary + old-code -> new-code remap table."""
@@ -120,6 +158,21 @@ class Dictionary:
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"Dictionary({len(self)} values)"
+
+
+def remap_between(src: Dictionary, dst: Dictionary) -> Optional[np.ndarray]:
+    """int32 table: ``src`` codes -> ``dst`` codes, -1 where a value is
+    absent from ``dst``; None when the two are one dictionary. Exact: one
+    sorted search of ``src``'s values in ``dst``'s (both sorted). The
+    port's own stand-in for the JAX package's dictionary registry remap,
+    computed on the host once per pair by its caller."""
+    if src is dst:
+        return None
+    sv, dv = src.values_str(), dst.values_str()
+    if len(dv) == 0:
+        return np.full(max(len(sv), 1), -1, np.int32)
+    idx = np.minimum(np.searchsorted(dv, sv), len(dv) - 1)
+    return np.where(dv[idx] == sv, idx, -1).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -102,7 +102,8 @@ def resolve_scalar_subqueries(plan: LogicalPlan, options=None) -> LogicalPlan:
 def plan_logical(plan: LogicalPlan, options=None) -> PhysicalPlan:
     """Resolve scalar subqueries, optimize, and plan physically."""
     if isinstance(plan, Explain):
-        raise NotImplementedError_("EXPLAIN is not ported yet")
+        raise NotImplementedError_(
+            "EXPLAIN is not ported yet: ROADMAP queue 1 item 11")
     plan = resolve_scalar_subqueries(plan, options)
     return create_physical_plan(optimize(plan), options)
 

@@ -17,6 +17,9 @@ class MemTableSource(TableSource):
         self._schema = schema
         self._partitions = partitions
 
+    def estimated_rows(self) -> Optional[int]:
+        return sum(int(b.num_rows) for part in self._partitions for b in part)
+
     @staticmethod
     def from_pydict(schema: Schema, data: Dict, num_partitions: int = 1,
                     capacity: Optional[int] = None, *,

@@ -85,6 +85,22 @@ class DelimitedSource(TableSource):
     def num_partitions(self) -> int:
         return len(self._files)
 
+    def estimated_rows(self) -> Optional[int]:
+        """file sizes / sampled average line length (no full read)."""
+        if not self._files:
+            return 0
+        try:
+            with open(self._files[0], "rb") as fh:
+                sample = fh.read(1 << 16)
+        except OSError:
+            return None
+        lines = sample.count(b"\n")
+        if lines == 0:
+            return None
+        avg = len(sample) / lines
+        total = sum(os.path.getsize(f) for f in self._files)
+        return int(total / avg)
+
     # -- scanning -----------------------------------------------------------
 
     def _table_dictionaries(self, colnames: List[str]) -> Dict[str, Dictionary]:

@@ -1,10 +1,14 @@
-"""Dense grouped and ungrouped aggregation.
+"""Grouped and ungrouped aggregation.
 
-The port of the dense and scalar parts of the JAX package's
-``kernels/aggregate.py`` (the sort-based ``grouped_aggregate``,
-``grouped_distinct_count`` and ``dense_grouped_scatter`` are not ported
-yet). SQL semantics carried through:
+The port of the JAX package's ``kernels/aggregate.py``: the sort-based
+``grouped_aggregate``, the dense paths (``dense_grouped_aggregate`` for
+small known cardinalities, ``dense_grouped_scatter`` for ranged integer
+keys), ``scalar_aggregate`` and ``avg_fixed``. ``grouped_distinct_count``
+is not ported yet (only stage fusion creates its caller). SQL semantics
+carried through:
 
+- NULL group keys form their own group (each key column contributes its
+  validity as an implicit sort/boundary key);
 - NULL inputs are excluded from aggregates, and each aggregate reports a
   per-group validity ("any non-NULL input seen"), so all-NULL groups yield
   NULL rather than the reduction identity;
@@ -58,6 +62,150 @@ def _min_ident(dt: torch.dtype):
 
 def _is_integer(t: torch.Tensor) -> bool:
     return not t.dtype.is_floating_point and t.dtype != torch.bool
+
+
+# ---------------------------------------------------------------------------
+# Sort-based grouping
+# ---------------------------------------------------------------------------
+
+
+def _run_boundaries(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """bool [N]: row i starts a new run of the (sorted) key columns —
+    ANY column differs from its predecessor (row 0 always starts one)."""
+    first = None
+    for ks in cols:
+        diff = torch.cat([torch.ones((1,), dtype=torch.bool,
+                                     device=ks.device), ks[1:] != ks[:-1]])
+        first = diff if first is None else first | diff
+    return first
+
+
+def _lexsort(cols: Sequence[torch.Tensor]) -> torch.Tensor:
+    """int64 permutation ordering rows lexicographically by ``cols``
+    (major first), ties in row order: torch has no multi-operand
+    ``lax.sort``, so stable argsorts chain from the minor column to the
+    major one."""
+    perm = torch.arange(cols[0].shape[0], dtype=torch.int64,
+                        device=cols[0].device)
+    for k in reversed(cols):
+        if k.dtype == torch.bool:
+            k = k.to(torch.int32)
+        perm = perm[torch.argsort(k[perm], stable=True)]
+    return perm
+
+
+def _segment(op: str, values: torch.Tensor, seg: torch.Tensor, g: int,
+             init) -> torch.Tensor:
+    """One reduction of ``values`` into ``g + 1`` segments (the last is
+    the trash of dead and overflowing rows), trash sliced off."""
+    out = torch.full((g + 1,), init, dtype=values.dtype, device=values.device)
+    if op == "sum":
+        out.index_add_(0, seg, values)
+    else:
+        out.scatter_reduce_(0, seg, values, reduce=op)
+    return out[:g]
+
+
+def grouped_aggregate(
+    keys: Sequence[torch.Tensor],  # one or more [N] key columns (ints/codes)
+    live: torch.Tensor,  # bool [N] live-row mask
+    aggs: Sequence[AggInput],
+    group_capacity: int,
+    key_validities: Optional[Sequence[Optional[torch.Tensor]]] = None,
+) -> GroupedResult:
+    """Sort-based grouping: rows ordered by [dead, keys...] (stable), run
+    boundaries give dense group ids, one segment reduction per aggregate.
+    Groups come out in key order, as in the JAX package; ``num_groups``
+    is the TRUE count (it may exceed ``group_capacity``: the caller
+    retries larger)."""
+    keys = list(keys)
+    if not keys:
+        raise ExecutionError("grouped_aggregate requires at least one key")
+    if key_validities is None:
+        key_validities = [None] * len(keys)
+    # NULL keys group together: each nullable key contributes (validity,
+    # value-or-0) as the effective sort/boundary pair
+    eff_keys: List[torch.Tensor] = []
+    for k, kv in zip(keys, key_validities):
+        if kv is not None:
+            eff_keys.append(kv.to(torch.int32))
+            eff_keys.append(torch.where(kv, k, torch.zeros((), dtype=k.dtype,
+                                                           device=k.device)))
+        else:
+            eff_keys.append(k)
+
+    n = live.shape[0]
+    dev = live.device
+    dead = torch.logical_not(live)
+    presorted = False
+    if len(eff_keys) == 1:
+        # PRESORTED fast path: a group-by over a clustered key (q18's
+        # l_orderkey, in file order) skips the sort when the key is
+        # non-decreasing over a contiguous live prefix — one scalar read
+        k0 = eff_keys[0]
+        live_prefix = torch.all(live[1:] <= live[:-1])
+        nondecreasing = torch.all((k0[1:] >= k0[:-1]) | ~live[1:])
+        presorted = bool(live_prefix & nondecreasing)
+    if presorted:
+        order = torch.arange(n, dtype=torch.int64, device=dev)
+        sorted_keys = [eff_keys[0]]
+        live_sorted = live
+    else:
+        order = _lexsort([dead] + eff_keys)
+        sorted_keys = [k[order] for k in eff_keys]
+        live_sorted = live[order]
+
+    # a row starts a new group if live and ANY key differs from predecessor
+    starts = _run_boundaries(sorted_keys) & live_sorted
+    gid = torch.cumsum(starts.to(torch.int64), 0) - 1  # [-1..G-1]
+    num_groups = starts.sum(dtype=torch.int32)
+    g = group_capacity
+    # dead rows / overflow go to the trash segment g
+    seg = torch.where(live_sorted, gid.clamp(max=g), g)
+
+    # representative original-row index per group (first member in order)
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    first_pos = _segment("amin", torch.where(live_sorted, pos, n), seg, g, n)
+    rep_indices = order[first_pos.clamp(max=n - 1)].to(torch.int32)
+    group_valid = torch.arange(g, dtype=torch.int32, device=dev) < num_groups
+
+    results: List[torch.Tensor] = []
+    valid_results: List[torch.Tensor] = []
+    for a in aggs:
+        valid = a.validity[order] if a.validity is not None else None
+        if a.op == "count":
+            v = (torch.ones((n,), dtype=torch.int64, device=dev)
+                 if valid is None else valid.to(torch.int64))
+            r = _segment("sum", v, seg, g, 0)
+            va = group_valid
+        else:
+            if a.values is None:
+                raise ExecutionError(f"{a.op} requires input values")
+            v = torch.broadcast_to(a.values, (n,))[order]
+            if a.op == "sum":
+                if valid is not None:
+                    v = torch.where(valid, v, 0)
+                r = _segment("sum", v, seg, g, 0)
+            elif a.op == "min":
+                if valid is not None:
+                    v = torch.where(valid, v, _max_ident(v.dtype))
+                r = _segment("amin", v, seg, g, _max_ident(v.dtype))
+            elif a.op == "max":
+                if valid is not None:
+                    v = torch.where(valid, v, _min_ident(v.dtype))
+                r = _segment("amax", v, seg, g, _min_ident(v.dtype))
+            else:
+                raise ExecutionError(f"unknown aggregate op {a.op}")
+            if valid is not None:
+                seen = _segment("amax", valid.to(torch.int32), seg, g, 0)
+                va = group_valid & (seen > 0)
+            else:
+                va = group_valid
+        results.append(torch.where(va, r, 0))
+        valid_results.append(va)
+
+    return GroupedResult(rep_indices, group_valid, num_groups, results,
+                         valid_results)
 
 
 # ---------------------------------------------------------------------------
@@ -163,6 +311,68 @@ def _dense_grouped_torch(
             va = seen[:g] > 0
         results.append(torch.where(va, r, torch.zeros((), dtype=r.dtype,
                                                       device=dev)))
+        valid_results.append(va)
+
+    return GroupedResult(rep_indices, group_valid, num_present, results,
+                         valid_results)
+
+
+def dense_grouped_scatter(
+    gids: torch.Tensor,  # int32 [N] in [0, num_groups)
+    live: torch.Tensor,  # bool [N]
+    aggs: Sequence[AggInput],
+    num_groups: int,
+) -> GroupedResult:
+    """O(N) scatter-based dense grouping for group counts where the
+    membership product is prohibitive (ranged-integer keys: thousands to
+    millions of groups). Same semantics: non-compact groups,
+    ``group_valid`` marks occupancy, per-aggregate validity is "any
+    non-NULL input seen". Rows JAX would drop (dead, or a gid outside
+    [0, G)) go to the trash slot G."""
+    n = gids.shape[0]
+    g = num_groups
+    dev = gids.device
+    slot = torch.where(live & (gids >= 0) & (gids < g), gids.to(torch.int64),
+                       g)
+    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    first = _segment("amin", rows, slot, g, n)
+    group_valid = first < n
+    rep_indices = first.clamp(max=n - 1).to(torch.int32)
+    num_present = group_valid.sum(dtype=torch.int32)
+
+    results: List[torch.Tensor] = []
+    valid_results: List[torch.Tensor] = []
+    for a in aggs:
+        valid = a.validity
+        if a.op == "count":
+            v = (torch.ones((n,), dtype=torch.int64, device=dev)
+                 if valid is None else valid.to(torch.int64))
+            r = _segment("sum", v, slot, g, 0)
+            va = group_valid
+        else:
+            if a.values is None:
+                raise ExecutionError(f"{a.op} requires input values")
+            v = torch.broadcast_to(a.values, (n,))
+            if a.op == "sum":
+                if valid is not None:
+                    v = torch.where(valid, v, 0)
+                r = _segment("sum", v, slot, g, 0)
+            elif a.op == "min":
+                if valid is not None:
+                    v = torch.where(valid, v, _max_ident(v.dtype))
+                r = _segment("amin", v, slot, g, _max_ident(v.dtype))
+            elif a.op == "max":
+                if valid is not None:
+                    v = torch.where(valid, v, _min_ident(v.dtype))
+                r = _segment("amax", v, slot, g, _min_ident(v.dtype))
+            else:
+                raise ExecutionError(f"unknown aggregate op {a.op}")
+            if valid is not None:
+                seen = _segment("amax", valid.to(torch.int32), slot, g, 0)
+                va = group_valid & (seen > 0)
+            else:
+                va = group_valid
+        results.append(torch.where(va, r, 0))
         valid_results.append(va)
 
     return GroupedResult(rep_indices, group_valid, num_present, results,

@@ -1,12 +1,21 @@
 """Hash-aggregate physical operator (Partial / Final modes).
 
-The port of the JAX package's ``physical/aggregate.py``, dense and scalar
-branches. Group keys whose cardinalities are known (dictionary codes,
-booleans) and multiply to at most ``DENSE_GROUP_LIMIT`` take the dense,
-sort-free path (``kernels.aggregate.dense_grouped_aggregate``, whose
-integer sums run in the CUDA kernel on a card); ungrouped aggregates take
-``scalar_aggregate``. The mixed/ranged scatter and sort-based grouping of
-the JAX package are not ported yet and raise ``NotImplementedError_``.
+The port of the JAX package's ``physical/aggregate.py``. Three grouping
+paths, picked as the JAX package picks them, so each query takes the
+same one:
+
+- group keys whose cardinalities are known (dictionary codes, booleans)
+  and multiply to at most ``DENSE_GROUP_LIMIT`` take the dense, sort-free
+  path (``kernels.aggregate.dense_grouped_aggregate``, whose integer sums
+  run in the CUDA kernel on a card);
+- keys that are each dictionary-coded or integer-valued with a live range
+  small enough take the mixed/ranged path: an O(N) scatter into a
+  mixed-radix table (``dense_grouped_scatter``), no sort, no overflow;
+- everything else takes the sort-based ``grouped_aggregate``, which
+  re-runs at a larger group capacity when the true group count overflows
+  and remembers the capacity it learned.
+
+Ungrouped aggregates take ``scalar_aggregate``.
 
 State layout: Partial emits "group columns + state columns" batches
 (avg -> sum+count states), Final regroups the concatenated partial tables,
@@ -15,11 +24,11 @@ merges states, and finalizes (avg division in scaled int64 -> Decimal(6)).
 
 from __future__ import annotations
 
-from typing import Iterator, List, Tuple
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 
-from ..columnar import Column, ColumnBatch
+from ..columnar import Column, ColumnBatch, round_capacity
 from ..datatypes import DataType, Decimal, Field, Float64, Int64, Schema
 from ..errors import ExecutionError, NotImplementedError_
 from .. import expr as ex
@@ -27,6 +36,8 @@ from ..kernels.aggregate import (
     AggInput,
     avg_fixed,
     dense_grouped_aggregate,
+    dense_grouped_scatter,
+    grouped_aggregate,
     scalar_aggregate,
 )
 from ..kernels.expr_eval import Evaluator
@@ -97,6 +108,7 @@ class HashAggregateExec(PhysicalPlan):
         for name, a in self._aggs:
             if not isinstance(a, ex.AggregateExpr):
                 raise ExecutionError(f"not an aggregate expression: {name}")
+        self._ranged_rejected = False
 
     # -- schemas ------------------------------------------------------------
 
@@ -215,10 +227,9 @@ class HashAggregateExec(PhysicalPlan):
             return v.to(torch.int64)
         return v.to(torch.float32)
 
-    def _dense_group_ids(self, batch: ColumnBatch, key_evals):
-        """(gid int32 [capacity], G) when every key has a known
-        cardinality and the product fits the dense path, else None —
-        the dense branch of the JAX ``_run_grouping``."""
+    def _run_grouping(self, batch: ColumnBatch, key_evals, aggs, cap):
+        """Dense (sort-free) grouping when every key has a known
+        cardinality and their product fits, else sort-based grouping."""
         cards = []
         for r in key_evals:
             if r.dictionary is not None:
@@ -226,35 +237,179 @@ class HashAggregateExec(PhysicalPlan):
             elif r.dtype.kind == "boolean":
                 cards.append(2)
             else:
+                cards = None
+                break
+        if cards is not None:
+            g_total = 1
+            for r, card in zip(key_evals, cards):
+                g_total *= card + (1 if r.validity is not None else 0)
+            if 0 < g_total <= min(DENSE_GROUP_LIMIT, cap):
+                gid = torch.zeros((batch.capacity,), dtype=torch.int32,
+                                  device=batch.device)
+                for r, card in zip(key_evals, cards):
+                    slots = card + (1 if r.validity is not None else 0)
+                    code = torch.broadcast_to(r.values.to(torch.int32),
+                                              (batch.capacity,))
+                    if r.validity is not None:
+                        # NULL keys take the extra slot per key column
+                        code = torch.where(r.validity, code, card)
+                    gid = gid * slots + code
+                return dense_grouped_aggregate(gid, batch.selection, aggs,
+                                               g_total)
+        keys = [torch.broadcast_to(r.values, (batch.capacity,))
+                for r in key_evals]
+        return grouped_aggregate(keys, batch.selection, aggs, cap,
+                                 [r.validity for r in key_evals])
+
+    def _static_group_bound(self, batch: ColumnBatch) -> Optional[int]:
+        """Host-side upper bound on the group count when every group key
+        is a plain column with known cardinality (dictionary/boolean) —
+        the dense path's condition, read off the batch's columns. Such a
+        grouping cannot overflow, so it skips the overflow check."""
+        g = 1
+        for e in self.group_exprs:
+            if self.mode == "partial":
+                base = ex.strip_alias(e)
+                if not isinstance(base, ex.ColumnRef):
+                    return None
+                name = base.column
+            else:
+                name = e.name()
+            if not batch.schema.has_field(name):
                 return None
-        g_total = 1
-        for r, card in zip(key_evals, cards):
-            g_total *= card + (1 if r.validity is not None else 0)
-        if not 0 < g_total <= min(DENSE_GROUP_LIMIT, self.group_capacity):
-            return None
-        gid = torch.zeros((batch.capacity,), dtype=torch.int32,
-                          device=batch.device)
-        for r, card in zip(key_evals, cards):
-            slots = card + (1 if r.validity is not None else 0)
-            code = torch.broadcast_to(r.values.to(torch.int32),
-                                      (batch.capacity,))
+            col = batch.column(name)
+            if col.dictionary is not None:
+                card = len(col.dictionary)
+            elif col.dtype.kind == "boolean":
+                card = 2
+            else:
+                return None
+            g *= card + (1 if col.validity is not None else 0)
+        return g if g > 0 else None
+
+    # Ranged/mixed dense grouping: when every group key is either
+    # dictionary-coded (static cardinality) or integer-valued with a
+    # live range fitting below these bounds, rows aggregate by O(N)
+    # scatter into a mixed-radix [G] table — no sort, no overflow retry.
+    # The range cap bounds table memory; the live-rows factor keeps
+    # pathological sparse keys (hash-like ids) on the sort path. The
+    # same limits as the JAX package, so each query takes the same path.
+    _RANGED_DENSE_LIMIT = 1 << 23
+    _RANGED_CAP_FACTOR = 16
+    _RANGED_KINDS = ("int32", "int64", "decimal", "date32", "timestamp_ns")
+
+    def _mixed_layout(self, key_evals):
+        """Per group key: ("dict", slots) for dictionary/boolean keys or
+        ("int", None) for integer-valued keys (expressions included, e.g.
+        EXTRACT(YEAR ...)); None when any key is neither. The JAX package
+        classifies by tracing the evaluator without compute; here the
+        keys are already evaluated once for the whole grouping, and their
+        dtypes and dictionaries classify them."""
+        layout = []
+        for r in key_evals:
+            if r.dictionary is not None:
+                layout.append(("dict", len(r.dictionary) + 1))  # +1 NULL slot
+            elif r.dtype.kind == "boolean":
+                layout.append(("dict", 3))
+            elif r.dtype.kind in self._RANGED_KINDS:
+                layout.append(("int", None))
+            else:
+                return None
+        return layout
+
+    def _mixed_stats(self, batch: ColumnBatch, layout, key_evals):
+        """(per-int-key (min, max) list, live rows): one host fetch."""
+        i64_max = torch.iinfo(torch.int64).max
+        vals = []
+        for (kind, _), r in zip(layout, key_evals):
+            if kind != "int":
+                continue
+            v = torch.broadcast_to(r.values, (batch.capacity,)).to(torch.int64)
+            live = batch.selection
             if r.validity is not None:
-                # NULL keys take the extra slot per key column
-                code = torch.where(r.validity, code, card)
-            gid = gid * slots + code
-        return gid, g_total
+                live = live & r.validity
+            vals += [torch.where(live, v, i64_max).min(),
+                     torch.where(live, v, -i64_max).max()]
+        vals.append(batch.selection.sum(dtype=torch.int64))
+        host = torch.stack(vals).tolist()
+        return list(zip(host[:-1:2], host[1:-1:2])), host[-1]
+
+    def _mixed_grouping(self, batch: ColumnBatch, key_evals, aggs, layout,
+                        spans, bases):
+        """Mixed-radix gid over per-key slots (slot 0 of each radix =
+        NULL), O(N) scatter aggregation. The table is padded to a power
+        of two; gids stay below the exact product of the spans."""
+        g_total = 1
+        for sp in spans:
+            g_total *= sp
+        g = round_capacity(g_total)
+        gid = torch.zeros((batch.capacity,), dtype=torch.int64,
+                          device=batch.device)
+        bi = 0
+        for (kind, _), span, r in zip(layout, spans, key_evals):
+            v = torch.broadcast_to(r.values, (batch.capacity,)).to(torch.int64)
+            if kind == "dict":
+                c = v + 1
+            else:
+                c = v - bases[bi] + 1
+                bi += 1
+            if r.validity is not None:
+                c = torch.where(r.validity, c, 0)
+            gid = gid * span + c
+        res = dense_grouped_scatter(gid.to(torch.int32), batch.selection,
+                                    aggs, g)
+        return res, g
 
     def _exec_grouped(self, batch: ColumnBatch) -> ColumnBatch:
         key_evals, aggs = self._inputs_and_keys(batch)
-        dense = self._dense_group_ids(batch, key_evals)
-        if dense is None:
-            raise NotImplementedError_(
-                "grouping by keys without a small known cardinality (the "
-                "mixed/ranged scatter and sort-based grouping) is not "
-                "ported yet: ROADMAP queue 1 item 6")
-        gid, g_total = dense
-        res = dense_grouped_aggregate(gid, batch.selection, aggs, g_total)
-        return self._assemble(batch, key_evals, res, g_total)
+        cap = self.group_capacity
+        bound = self._static_group_bound(batch)
+        if bound is not None and bound <= min(DENSE_GROUP_LIMIT, cap):
+            # the dense path: cannot overflow, no sync needed
+            res = self._run_grouping(batch, key_evals, aggs, cap)
+            return self._assemble(batch, key_evals, res, cap)
+        # rejected once (hash-like sparse ids / huge products) -> rejected
+        # for the operator's lifetime: don't pay the stats fetch again
+        layout = None if self._ranged_rejected else \
+            self._mixed_layout(key_evals)
+        if layout is not None:
+            mm, nlive = self._mixed_stats(batch, layout, key_evals)
+            if not any(lo > hi for lo, hi in mm):
+                # (no live rows: the sort path handles the empty batch)
+                spans, bases = [], []
+                true_total = 1  # product of UNQUANTIZED spans
+                it = iter(mm)
+                for kind, slots in layout:
+                    if kind == "dict":
+                        spans.append(slots)
+                        true_total *= slots
+                    else:
+                        lo, hi = next(it)
+                        # +1 NULL slot; quantized as in the JAX package
+                        spans.append(round_capacity(hi - lo + 2))
+                        bases.append(lo)
+                        true_total *= hi - lo + 2
+                g_total = 1
+                for sp in spans:
+                    g_total *= sp
+                # admission gates on LIVE rows, with the TRUE span
+                # product; the quantized table must fit the absolute cap
+                if (true_total <= self._RANGED_CAP_FACTOR * (nlive + 256)
+                        and g_total <= self._RANGED_DENSE_LIMIT):
+                    res, g = self._mixed_grouping(batch, key_evals, aggs,
+                                                  layout, spans, bases)
+                    return self._assemble(batch, key_evals, res, g)
+                self._ranged_rejected = True
+        # sort path with the overflow retry
+        while True:
+            res = self._run_grouping(batch, key_evals, aggs, cap)
+            ng = int(res.num_groups)
+            if ng <= cap:
+                # persist the learned capacity: the operator is reused
+                # across partitions and collects
+                self.group_capacity = max(self.group_capacity, cap)
+                return self._assemble(batch, key_evals, res, cap)
+            cap = round_capacity(ng)
 
     def _inputs_and_keys(self, batch: ColumnBatch):
         """(key_evals, aggs) for the current mode."""

@@ -68,6 +68,24 @@ class PhysicalPlan:
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         raise NotImplementedError(type(self).__name__)
 
+    def release(self) -> None:
+        """Drop what this operator materialized for its later partitions
+        (join build tables, repartitioned batches). The client calls it
+        on every operator around each collect, so a plan kept for reuse
+        holds no device memory between collects and a repeated collect
+        reads its inputs again."""
+
+    def estimated_rows(self) -> Optional[int]:
+        """Crude output-cardinality estimate for planning decisions (join
+        orientation, co-partitioning). Filters and joins deliberately
+        over-estimate (pass-through / sum); None = unknown."""
+        ests = [c.estimated_rows() for c in self.children()]
+        # any unknown child makes the total unknown: silently dropping it
+        # would UNDER-estimate, and callers rely on over-estimation
+        if not ests or any(e is None for e in ests):
+            return None
+        return sum(ests)
+
     def display(self) -> str:
         return type(self).__name__
 

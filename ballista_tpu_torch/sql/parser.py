@@ -1,5 +1,6 @@
 """Recursive-descent / Pratt SQL parser producing statement ASTs whose
-expressions are ``ballista_tpu.expr`` nodes (with unresolved column refs).
+expressions are ``ballista_tpu_torch.expr`` nodes (with unresolved column
+refs).
 """
 
 from __future__ import annotations

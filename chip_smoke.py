@@ -36,13 +36,31 @@ non-zero exit):
    VEC = 1 instantiation, timed as ``vec1_ms``); results must equal the
    port on the CPU and an integer numpy group-by of the scanned columns,
    exactly;
-5. the kernel list, as one JSON line; its times, replicas and VEC are
-   those on the main path's inputs.
+5. TPC-H q3 and q5 at SF1 over all eight tables, cold and warm: each
+   physical plan is printed; q3's must hold a co-partitioned
+   ``JoinExec`` over two ``RepartitionExec``s; the kernel's launch count
+   is reset just before and read just after each q5 collect (>= 2), and
+   the kernel is held against its plain version on the inputs of every
+   call of q5's cold collect (the largest timed); results must equal the
+   port on the CPU and a numpy implementation of each query over the
+   scanned columns (sorted-key joins, int64 decimals), exactly;
+6. hash partition ids on the card: ``hash_partition_ids`` on full-range
+   int64 keys and on SF1 ``l_orderkey``, and ``compute_partition_ids`` on
+   ``l_orderkey``, on the utf8 ``l_shipmode`` and on both, for P = 8 and
+   P = 7, each equal to the ids the CPU computes, bit for bit;
+7. all 22 TPC-H queries at SF0.05 (two files a table, in
+   ``bench_data/sf0.05``) on the card and through the port on the CPU:
+   integer, decimal, date and string columns equal exactly, float
+   columns within rtol 1e-6;
+8. the kernel list, as one JSON line; its times, replicas and VEC are
+   those on q1's main-path inputs, with q5's launches and times beside
+   them.
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
-{...}}``. Option: ``--profile`` (one more warm q1 collect under
-``torch.profiler``: device time by kernel and the operators' metrics).
+{...}}``. Option: ``--profile`` (one more warm collect each of q1, q3 and
+q5 under ``torch.profiler``: device time by kernel, the share of the wall
+time the card was busy, and the operators' metrics).
 """
 
 from __future__ import annotations
@@ -63,6 +81,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 QUERY_DIR = os.path.join("benchmarks", "tpch", "queries")
 SCALE = 1.0  # TPC-H scale factor: lineitem holds about 6.0 M rows
+SMALL_SCALE = 0.05  # the 22-query check: lineitem holds about 300 K rows
+QUERIES = [f"q{i}" for i in range(1, 23)]
 HOLD_CYCLES = 4_000_000  # about 2 ms: longer than queueing one call
 FLUSH_BYTES = 256 << 20  # written before every timed call: 5x the 50 MB L2
 
@@ -153,22 +173,22 @@ def phase_build() -> None:
         raise errors[0]
 
 
-def setup_data() -> str:
+def setup_data(scale: float = SCALE, num_parts: int = 1) -> str:
     from benchmarks.tpch import datagen
 
-    data_dir = os.path.join("bench_data", f"sf{SCALE:g}")
+    data_dir = os.path.join("bench_data", f"sf{scale:g}")
     marker = os.path.join(data_dir, ".complete")
-    want = f"v{datagen.DATAGEN_VERSION}"
+    want = f"v{datagen.DATAGEN_VERSION} parts={num_parts}"
     have = open(marker).read().strip() if os.path.exists(marker) else None
     if have != want:
         t0 = time.perf_counter()
-        datagen.generate(data_dir, scale=SCALE, num_parts=1)
+        datagen.generate(data_dir, scale=scale, num_parts=num_parts)
         with open(marker, "w") as f:
             f.write(want)
-        log(f"# set-up: generated TPC-H sf{SCALE:g} in "
+        log(f"# set-up: generated TPC-H sf{scale:g} in "
             f"{time.perf_counter() - t0:.1f}s")
     else:
-        log(f"# set-up: reusing TPC-H sf{SCALE:g} ({want})")
+        log(f"# set-up: reusing TPC-H sf{scale:g} ({want})")
     return data_dir
 
 
@@ -548,19 +568,308 @@ def phase_queries(data_dir: str):
     return timings, launches, sorted(set(spy_shapes)), main_path
 
 
-def profile_q1(data_dir: str) -> None:
-    """One more warm q1 collect under ``torch.profiler`` (``--profile``):
-    the device time by kernel, its share of the wall time, and the
-    operators' host-side metrics. Runs after the launch counts were read,
-    so it counts towards nothing."""
+# -- phase 5 ----------------------------------------------------------------
+
+
+def scan_table(data_dir: str, table: str, cols):
+    """Columns of one TPC-H table as the native scanner parses them, utf8
+    columns decoded to Python strings."""
+    from ballista_tpu_torch.io import native
+    from ballista_tpu_torch.testing.tpch_schema import TPCH_SCHEMAS
+
+    path = os.path.join(data_dir, table, "partition0.tbl")
+    _, a, dicts, valids = native.scan_file(path, TPCH_SCHEMAS[table], cols)
+    if valids:
+        raise AssertionError(f"unexpected NULLs in {sorted(valids)}")
+    return {c: (np.asarray(dicts[c], dtype=object)[a[c]] if c in dicts
+                else a[c]) for c in cols}
+
+
+def day(s: str) -> int:
+    return int(np.datetime64(s, "D").astype(np.int64))
+
+
+def pk_lookup(pk: np.ndarray, probe: np.ndarray):
+    """(found, row): the row of each probe key in the unique key column
+    ``pk``, by a sorted search."""
+    order = np.argsort(pk, kind="stable")
+    spk = pk[order]
+    pos = np.minimum(np.searchsorted(spk, probe), len(spk) - 1)
+    return spk[pos] == probe, order[pos]
+
+
+def group_sums(keys: np.ndarray, values: np.ndarray):
+    """(unique keys, exact int64 sum per key)."""
+    order = np.argsort(keys, kind="stable")
+    k, v = keys[order], values[order]
+    if not len(k):
+        return k, v
+    starts = np.flatnonzero(np.r_[True, k[1:] != k[:-1]])
+    return k[starts], np.add.reduceat(v, starts)
+
+
+def numpy_q3(data_dir: str):
+    """TPC-H q3 with numpy over the scanned columns: sorted-key joins,
+    int64 revenue at scale 4 (price and discount are Decimal(2))."""
+    c = scan_table(data_dir, "customer", ["c_custkey", "c_mktsegment"])
+    o = scan_table(data_dir, "orders", ["o_orderkey", "o_custkey",
+                                        "o_orderdate", "o_shippriority"])
+    li = scan_table(data_dir, "lineitem", ["l_orderkey", "l_extendedprice",
+                                           "l_discount", "l_shipdate"])
+    cut = day("1995-03-15")
+    building = np.sort(c["c_custkey"][c["c_mktsegment"] == "BUILDING"])
+    pos = np.minimum(np.searchsorted(building, o["o_custkey"]),
+                     len(building) - 1)
+    om = (o["o_orderdate"] < cut) & (building[pos] == o["o_custkey"])
+    found, row = pk_lookup(o["o_orderkey"], li["l_orderkey"])
+    keep = found & om[row] & (li["l_shipdate"] > cut)
+    rev = (li["l_extendedprice"].astype(np.int64)
+           * (100 - li["l_discount"].astype(np.int64)))[keep]
+    keys, sums = group_sums(li["l_orderkey"][keep], rev)
+    _, orow = pk_lookup(o["o_orderkey"], keys)
+    date = o["o_orderdate"][orow]
+    top = np.lexsort((keys, date, -sums))[:10]
+    return {"l_orderkey": keys[top],
+            "revenue": sums[top].astype(np.float64) / 1e4,
+            "o_orderdate": date[top].astype("datetime64[D]"),
+            "o_shippriority": o["o_shippriority"][orow][top]}
+
+
+def numpy_q5(data_dir: str):
+    """TPC-H q5 with numpy over the scanned columns."""
+    r = scan_table(data_dir, "region", ["r_regionkey", "r_name"])
+    n = scan_table(data_dir, "nation", ["n_nationkey", "n_name",
+                                        "n_regionkey"])
+    s = scan_table(data_dir, "supplier", ["s_suppkey", "s_nationkey"])
+    c = scan_table(data_dir, "customer", ["c_custkey", "c_nationkey"])
+    o = scan_table(data_dir, "orders", ["o_orderkey", "o_custkey",
+                                        "o_orderdate"])
+    li = scan_table(data_dir, "lineitem", ["l_orderkey", "l_suppkey",
+                                           "l_extendedprice", "l_discount"])
+    asia = r["r_regionkey"][r["r_name"] == "ASIA"]
+    f_o, orow = pk_lookup(o["o_orderkey"], li["l_orderkey"])
+    odate = o["o_orderdate"][orow]
+    f_c, crow = pk_lookup(c["c_custkey"], o["o_custkey"][orow])
+    f_s, srow = pk_lookup(s["s_suppkey"], li["l_suppkey"])
+    snat = s["s_nationkey"][srow]
+    f_n, nrow = pk_lookup(n["n_nationkey"], snat)
+    keep = (f_o & f_c & f_s & f_n
+            & (odate >= day("1994-01-01")) & (odate < day("1995-01-01"))
+            & (c["c_nationkey"][crow] == snat)
+            & np.isin(n["n_regionkey"][nrow], asia))
+    rev = (li["l_extendedprice"].astype(np.int64)
+           * (100 - li["l_discount"].astype(np.int64)))[keep]
+    keys, sums = group_sums(nrow[keep], rev)
+    top = np.lexsort((keys, -sums))
+    return {"n_name": n["n_name"][keys[top]],
+            "revenue": sums[top].astype(np.float64) / 1e4}
+
+
+def find_nodes(plan, cls):
+    out = [plan] if isinstance(plan, cls) else []
+    for c in plan.children():
+        out += find_nodes(c, cls)
+    return out
+
+
+def phase_joins(data_dir: str):
+    """q3 and q5 at SF1: plans, launch counts, the kernel on every q5
+    call, results against the port on the CPU and numpy."""
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.kernels import aggregate as agg_mod
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.physical.join import JoinExec
+    from ballista_tpu_torch.physical.operators import RepartitionExec
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    ctx = BallistaContext.standalone()  # device="cuda"
+    register_tpch(ctx, data_dir)
+    timings, q5_launches, q5_calls, results = {}, [], [], {}
+    for q in ("q3", "q5"):
+        df = ctx.sql(open(os.path.join(QUERY_DIR, f"{q}.sql")).read())
+        for run in ("cold", "warm"):
+            with KernelInputSpy(agg_mod) as spy:
+                torch.cuda.synchronize()
+                ds.launch_count = 0
+                t0 = time.perf_counter()
+                out = df.to_pydict()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                n_launch = ds.launch_count
+            if q == "q5":
+                q5_launches.append(n_launch)
+                if n_launch < 2:
+                    raise AssertionError(
+                        f"q5 {run}: dense_grouped_sums launched {n_launch} "
+                        f"times, expected >= 2 (partial + final)")
+                if run == "cold":
+                    q5_calls = spy.calls
+            timings[f"{q}_{run}_s"] = secs
+            log(f"# {q} {run}: {secs:.4f} s, dense_grouped_sums launches "
+                f"{n_launch}")
+            results[(q, run)] = out
+        assert_equal_results(f"{q} warm vs cold", results[(q, "warm")],
+                             results[(q, "cold")])
+        plan = df.physical_plan()
+        for line in plan.pretty().splitlines():
+            log(f"#   {line}")
+        if q == "q3":
+            copart = [j for j in find_nodes(plan, JoinExec)
+                      if j.partitioned
+                      and isinstance(j.build, RepartitionExec)
+                      and isinstance(j.probe, RepartitionExec)]
+            if not copart:
+                raise AssertionError("q3's plan holds no co-partitioned "
+                                     "JoinExec over two RepartitionExecs")
+
+    # the kernel on the inputs of every call of q5's cold collect; the
+    # call with the most rows is timed
+    if len(q5_calls) < 2:
+        raise AssertionError(f"q5 called dense_grouped_sums "
+                             f"{len(q5_calls)} times, expected >= 2")
+    biggest = max(range(len(q5_calls)),
+                  key=lambda i: int(q5_calls[i][0].shape[0]))
+    checked = [check_kernel(gids, live, values, g,
+                            f"q5 main-path call {i + 1} of {len(q5_calls)}",
+                            timed=i == biggest, vec=None)
+               for i, (gids, live, values, g) in enumerate(q5_calls)]
+    q5_main = checked[biggest]
+    q5_shapes = sorted({(c["n"], c["k"], c["g"]) for c in checked})
+    del q5_calls
+
+    cpu = BallistaContext.standalone(device="cpu")
+    register_tpch(cpu, data_dir)
+    refs = {"q3": numpy_q3(data_dir), "q5": numpy_q5(data_dir)}
+    for q in ("q3", "q5"):
+        got = results[(q, "cold")]
+        t0 = time.perf_counter()
+        want = cpu.sql(open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+                       ).to_pydict()
+        cpu_s = time.perf_counter() - t0
+        assert_equal_results(f"{q} cuda vs cpu", got, want)
+        assert_equal_results(f"{q} cuda vs numpy", got, refs[q])
+        log(f"# {q}: cuda == port on cpu ({cpu_s:.2f} s) == numpy "
+            f"({len(next(iter(got.values())))} rows)")
+    return timings, q5_launches, q5_main, q5_shapes
+
+
+# -- phase 6 ----------------------------------------------------------------
+
+
+def phase_hash_ids(data_dir: str) -> None:
+    """Partition ids on the card equal the ids on the CPU, bit for bit."""
+    from ballista_tpu_torch import expr as ex
+    from ballista_tpu_torch.columnar import ColumnBatch, Dictionary
+    from ballista_tpu_torch.io import native
+    from ballista_tpu_torch.kernels.expr_eval import Evaluator
+    from ballista_tpu_torch.kernels.hashing import (hash_partition_ids,
+                                                    splitmix64)
+    from ballista_tpu_torch.physical.operators import compute_partition_ids
+    from ballista_tpu_torch.testing.tpch_schema import TPCH_SCHEMAS
+
+    def same(label, on_card, on_cpu):
+        got = on_card.cpu()
+        if got.dtype != on_cpu.dtype or not torch.equal(got, on_cpu):
+            bad = int((got != on_cpu).sum())
+            raise AssertionError(f"{label}: card and CPU differ in {bad} "
+                                 f"of {on_cpu.numel()} ids")
+
+    rng = np.random.default_rng(3)
+    full = torch.from_numpy(rng.integers(np.iinfo(np.int64).min,
+                                         np.iinfo(np.int64).max, 1 << 20,
+                                         endpoint=True))
+    same("splitmix64, full int64 range", splitmix64(full.cuda()),
+         splitmix64(full))
+    sch = TPCH_SCHEMAS["lineitem"]
+    cols = ["l_orderkey", "l_shipmode"]
+    path = os.path.join(data_dir, "lineitem", "partition0.tbl")
+    n, a, dicts, _ = native.scan_file(path, sch, cols)
+    sub = sch.project(cols)
+    d = Dictionary(dicts["l_shipmode"])
+    batches = {dev: ColumnBatch.from_numpy(sub, a, {"l_shipmode": d},
+                                           device=dev)
+               for dev in ("cuda", "cpu")}
+    ev = Evaluator(sub)
+    for p in (8, 7):
+        same(f"hash_partition_ids, full range, P={p}",
+             hash_partition_ids(full.cuda(), p), hash_partition_ids(full, p))
+        same(f"hash_partition_ids, l_orderkey, P={p}",
+             hash_partition_ids(batches["cuda"].column("l_orderkey").values,
+                                p),
+             hash_partition_ids(batches["cpu"].column("l_orderkey").values,
+                                p))
+        for keys in (["l_orderkey"], ["l_shipmode"], cols):
+            exprs = [ex.col(k) for k in keys]
+            ids = {dev: compute_partition_ids(b, exprs, p, 0, ev)
+                   for dev, b in batches.items()}
+            same(f"compute_partition_ids {keys}, P={p}", ids["cuda"],
+                 ids["cpu"])
+            live = ids["cpu"][:n]
+            counts = torch.bincount(live.to(torch.int64), minlength=p)
+            log(f"# hash ids {keys} P={p}: card == cpu over {n} rows, "
+                f"rows per partition {counts.tolist()}")
+
+
+# -- phase 7 ----------------------------------------------------------------
+
+
+def assert_close_results(name: str, got, want) -> None:
+    """Integer, decimal, date and string columns exactly; float columns
+    (Float64 computes in float32 on the device) within rtol 1e-6."""
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: columns {list(got)} != {list(want)}")
+    for c in want:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        if g.shape != w.shape:
+            raise AssertionError(f"{name}.{c}: shape {g.shape} != {w.shape}")
+        if w.dtype.kind == "f":
+            ok = np.allclose(g, w, rtol=1e-6, atol=1e-6, equal_nan=True)
+        elif w.dtype.kind == "M":
+            ok = np.array_equal(g.astype(np.int64), w.astype(np.int64))
+        elif w.dtype.kind == "O":
+            ok = list(g) == list(w)
+        else:
+            ok = np.array_equal(g, w)
+        if not ok:
+            raise AssertionError(f"{name}.{c}: {g[:8]} != {w[:8]}")
+
+
+def phase_all_queries(data_dir: str):
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    gpu = BallistaContext.standalone()
+    cpu = BallistaContext.standalone(device="cpu")
+    register_tpch(gpu, data_dir)
+    register_tpch(cpu, data_dir)
+    secs = {}
+    for q in QUERIES:
+        sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+        t0 = time.perf_counter()
+        got = gpu.sql(sql).to_pydict()
+        torch.cuda.synchronize()
+        secs[q] = time.perf_counter() - t0
+        assert_close_results(f"{q} sf{SMALL_SCALE:g} cuda vs cpu", got,
+                             cpu.sql(sql).to_pydict())
+        log(f"# {q} sf{SMALL_SCALE:g}: cuda == port on cpu "
+            f"({len(next(iter(got.values())))} rows, {secs[q]:.3f} s "
+            f"on the card, cold)")
+    return secs
+
+
+def profile_query(data_dir: str, q: str) -> None:
+    """One more warm collect of ``q`` under ``torch.profiler``
+    (``--profile``): the device time by kernel, its share of the wall
+    time, and the operators' host-side metrics. Runs after the launch
+    counts were read, so it counts towards nothing."""
     from torch.profiler import ProfilerActivity, profile
 
     from ballista_tpu_torch.client import BallistaContext
     from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
     ctx = BallistaContext.standalone()
-    register_tpch(ctx, data_dir, tables=["lineitem"])
-    df = ctx.sql(open(os.path.join(QUERY_DIR, "q1.sql")).read())
+    register_tpch(ctx, data_dir)
+    df = ctx.sql(open(os.path.join(QUERY_DIR, f"{q}.sql")).read())
     df.to_pydict()  # warm: the plan and the libraries exist
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -577,9 +886,9 @@ def profile_q1(data_dir: str) -> None:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[2])
     busy = sum(ms for _, _, ms in rows)
-    log(f"# profile q1 warm: wall {wall * 1e3:.1f} ms, device busy "
+    log(f"# profile {q} warm: wall {wall * 1e3:.1f} ms, device busy "
         f"{busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}% of wall)")
-    for key, count, ms in rows[:12]:
+    for key, count, ms in rows[:15]:
         log(f"#   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
     for line in df.physical_plan().pretty_metrics().splitlines():
         log(f"#   {line}")
@@ -591,7 +900,7 @@ def profile_q1(data_dir: str) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm q1 collect")
+                    help="also profile one warm collect of q1, q3 and q5")
     args = ap.parse_args()
     card_id = use_one_card()
     if not torch.cuda.is_available():
@@ -601,15 +910,23 @@ def main() -> int:
     card = phase_card(card_id)
     phase_build()
     data_dir = setup_data()
+    small_dir = setup_data(SMALL_SCALE, num_parts=2)
     q1_shape = phase_kernel_check(lineitem_rows(data_dir))
     timings, launches, shapes, main_path = phase_queries(data_dir)
     if main_path["n"] != q1_shape["n"]:
         raise AssertionError(f"phase 3 timed N={q1_shape['n']} but q1's "
                              f"partial aggregate ran at N={main_path['n']}")
     log(f"# main-path kernel shapes (N, K, G): {shapes}")
+    join_timings, q5_launches, q5_main, q5_shapes = phase_joins(data_dir)
+    timings.update(join_timings)
+    log(f"# q5 kernel shapes (N, K, G): {q5_shapes}")
+    phase_hash_ids(data_dir)
+    small_secs = phase_all_queries(small_dir)
     if args.profile:
-        profile_q1(data_dir)
+        for q in ("q1", "q3", "q5"):
+            profile_query(data_dir, q)
     log(f"# timings: {json.dumps(timings)}")
+    log(f"# sf{SMALL_SCALE:g} seconds on the card: {json.dumps(small_secs)}")
     kernels = [{
         "name": "dense_grouped_sums",
         "route": "cuda",
@@ -631,6 +948,14 @@ def main() -> int:
                   "g": main_path["g"]},
         "even_groups_ms": q1_shape["ms"],
         "vec1_ms": main_path["vec1_ms"],
+        "q5_launches": q5_launches[0],
+        "q5_ms": q5_main["ms"],
+        "q5_call_ms": q5_main["call_ms"],
+        "q5_plain_ms": q5_main["plain_ms"],
+        "q5_bound_ms": q5_main["bound_ms"],
+        "q5_library_ms": q5_main["library_ms"],
+        "q5_shape": {"n": q5_main["n"], "k": q5_main["k"],
+                     "g": q5_main["g"]},
     }]
     log(f"# card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,6 +11,7 @@ import pytest
 
 from benchmarks.tpch import datagen, oracle
 from benchmarks.tpch.schema_def import register_tpch as register_reference
+import ballista_tpu as ref_pkg
 from ballista_tpu.client import BallistaContext as ReferenceContext
 
 import ballista_tpu_torch as bt
@@ -138,21 +139,52 @@ def test_standalone_defaults_to_cuda_and_never_falls_back():
             BallistaContext.standalone()
 
 
+def _assert_equals_reference(got, want):
+    assert list(got) == list(want.columns)
+    for c in want.columns:
+        w = want[c].to_numpy()
+        if w.dtype.kind == "M":  # pandas holds dates at second precision
+            w = w.astype("datetime64[D]")
+        np.testing.assert_array_equal(got[c], w, err_msg=c)
+
+
 def test_unported_operators_raise_and_name_the_queue(tpch):
-    _, port, _ = tpch
-    with pytest.raises(NotImplementedError_, match="queue 1 item 6"):
-        port.sql(_sql("q3")).to_pydict()  # joins
-    with pytest.raises(NotImplementedError_, match="queue 1 item 6"):
-        # a group key with no small known cardinality
-        port.sql("select l_orderkey, sum(l_quantity) from lineitem "
-                 "group by l_orderkey").to_pydict()
+    """Joins and grouping by a key without a small known cardinality raised
+    here until queue 1 item 6 was ported; both now run and equal the JAX
+    package."""
+    ref, port, _ = tpch
+    sql = ("select l_orderkey, sum(l_quantity) as q from lineitem "
+           "group by l_orderkey order by l_orderkey")
+    for query in (_sql("q3"), sql):
+        _assert_equals_reference(port.sql(query).to_pydict(),
+                                 ref.sql(query).collect())
 
 
-def test_settings_asking_for_unported_operators_raise():
+def test_settings_asking_for_unported_operators_raise(tpch):
+    """``agg.partitions`` (the hash-shuffled aggregation) raised until it
+    was ported; it now plans a hash repartition and equals the JAX
+    package under the same setting."""
+    from ballista_tpu_torch.physical.operators import RepartitionExec
+
     ctx = BallistaContext.standalone(device="cpu", **{"agg.partitions": "4"})
+    ref_ctx = ReferenceContext.standalone(**{"agg.partitions": "4"})
+    sql = "select k, count(*) as n from t group by k order by k"
+    data = {"k": ["a", "c", "b", "a", "c", "a"]}
+    ctx.register_memtable("t", bt.schema(("k", "utf8")), data)
+    ref_ctx.register_memtable("t", ref_pkg.schema(("k", "utf8")), data)
+    df = ctx.sql(sql)
+    _assert_equals_reference(df.to_pydict(), ref_ctx.sql(sql).collect())
+    node = df.physical_plan()
+    while not isinstance(node, RepartitionExec):
+        node = node.children()[0]
+    assert node.num_partitions == 4
+
+
+def test_explain_is_not_ported_and_names_its_queue():
+    ctx = BallistaContext.standalone(device="cpu")
     ctx.register_memtable("t", bt.schema(("k", "utf8")), {"k": ["a"]})
-    with pytest.raises(NotImplementedError_, match="agg.partitions"):
-        ctx.sql("select k from t").to_pydict()
+    with pytest.raises(NotImplementedError_, match="queue 1 item 11"):
+        ctx.sql("explain select k from t").to_pydict()
 
 
 def test_produce_diagram_links_stages():
@@ -171,8 +203,6 @@ def test_produce_diagram_links_stages():
 
 
 def test_csv_source_with_header_matches_reference(tmp_path):
-    import ballista_tpu as ref_pkg
-
     path = tmp_path / "t.csv"
     path.write_text("k,v,d\nb,1.25,1995-01-02\na,-2.50,1994-12-31\n"
                     "b,3.00,1996-02-29\n")
