@@ -177,8 +177,13 @@ class BallistaContext:
         execute; returns ``(dict of numpy arrays, phys)``."""
         from .execution import collect_physical, plan_logical
 
+        from .physical.fusion import maybe_fuse
+
         if phys is None:
             phys = plan_logical(plan, self._planner_options())
+        # whole-stage fusion: each pipeline stage becomes one governed
+        # program (a no-op on a kept plan, which is fused already)
+        phys = maybe_fuse(phys)
         nodes = _plan_nodes(phys)
         for node in nodes:  # report THIS run's metrics
             node.metrics().reset()

@@ -1,5 +1,30 @@
-"""Shape canonicalization: the row-count bucket ladder (``buckets.py``,
-copied from the JAX package). The port has no compile governor: PyTorch
-runs eagerly, so only the capacity ladder carries over."""
+"""Compile management for the port (see the JAX package's
+``compile/__init__.py``):
 
-from .buckets import bucket_capacity  # noqa: F401
+- :mod:`buckets`  — shape canonicalization: batch capacities quantize
+  onto a geometric row-count ladder (``BALLISTA_SHAPE_BUCKETS*`` knobs),
+  copied from the JAX package;
+- :mod:`governor` — the process-wide cache of governed programs: eager on
+  the CPU, one captured CUDA graph per call signature on a card, with
+  first-call counts and seconds on the operators' metrics;
+- :mod:`keys`     — value fingerprints of plan configuration for keys.
+
+The JAX package's ``prewarm`` and ``aot`` modules are not ported yet.
+"""
+
+from .buckets import (  # noqa: F401
+    bucket_capacity,
+    bucket_ladder,
+    buckets_enabled,
+    reconfigure,
+)
+from .governor import (  # noqa: F401
+    MESH_NS_CAP,
+    CompileGovernor,
+    GovernedFunction,
+    compile_stats,
+    governed,
+    governor,
+    reset_compile_stats,
+)
+from .keys import fingerprint  # noqa: F401

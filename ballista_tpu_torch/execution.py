@@ -1,9 +1,10 @@
 """Single-process plan execution helpers.
 
 The port of the JAX package's ``execution.py``: plan a logical plan,
-execute every partition and gather the live rows on the host. The JAX
-package's EXPLAIN rendering, result cache, fusion and parallel partition
-ingest are not ported yet; partitions run one after another.
+fuse it (``physical/fusion.py``), execute every partition and gather the
+live rows on the host. The JAX package's EXPLAIN rendering, result cache
+and parallel partition ingest are not ported yet; partitions run one
+after another.
 """
 
 from __future__ import annotations
@@ -106,6 +107,14 @@ def plan_logical(plan: LogicalPlan, options=None) -> PhysicalPlan:
             "EXPLAIN is not ported yet: ROADMAP queue 1 item 11")
     plan = resolve_scalar_subqueries(plan, options)
     return create_physical_plan(optimize(plan), options)
+
+
+def collect(plan: LogicalPlan, options=None) -> Dict[str, np.ndarray]:
+    """Logical plan -> dict of numpy arrays (optimize, plan, fuse,
+    execute, gather)."""
+    from .physical.fusion import maybe_fuse
+
+    return collect_physical(maybe_fuse(plan_logical(plan, options)))
 
 
 def collect_physical(phys: PhysicalPlan) -> Dict[str, np.ndarray]:

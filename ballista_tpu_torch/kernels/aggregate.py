@@ -3,9 +3,10 @@
 The port of the JAX package's ``kernels/aggregate.py``: the sort-based
 ``grouped_aggregate``, the dense paths (``dense_grouped_aggregate`` for
 small known cardinalities, ``dense_grouped_scatter`` for ranged integer
-keys), ``scalar_aggregate`` and ``avg_fixed``. ``grouped_distinct_count``
-is not ported yet (only stage fusion creates its caller). SQL semantics
-carried through:
+keys), ``grouped_distinct_count`` (one sort for COUNT(DISTINCT), which
+only stage fusion calls), ``scalar_aggregate`` and ``avg_fixed``. They
+run inside governed programs, so none reads a value back to the host
+while a program is captured. SQL semantics carried through:
 
 - NULL group keys form their own group (each key column contributes its
   validity as an implicit sort/boundary key);
@@ -26,6 +27,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..compile.governor import capturing
 from ..errors import ExecutionError
 from .dense_sums import dense_grouped_sums
 
@@ -138,10 +140,12 @@ def grouped_aggregate(
     dev = live.device
     dead = torch.logical_not(live)
     presorted = False
-    if len(eff_keys) == 1:
+    if len(eff_keys) == 1 and not capturing():
         # PRESORTED fast path: a group-by over a clustered key (q18's
         # l_orderkey, in file order) skips the sort when the key is
-        # non-decreasing over a contiguous live prefix — one scalar read
+        # non-decreasing over a contiguous live prefix — one scalar read.
+        # The sort gives the same order then (stable, dead rows last), so
+        # a captured program, which cannot read the scalar, always sorts
         k0 = eff_keys[0]
         live_prefix = torch.all(live[1:] <= live[:-1])
         nondecreasing = torch.all((k0[1:] >= k0[:-1]) | ~live[1:])
@@ -206,6 +210,81 @@ def grouped_aggregate(
 
     return GroupedResult(rep_indices, group_valid, num_groups, results,
                          valid_results)
+
+
+def grouped_distinct_count(
+    group_keys: Sequence[torch.Tensor],  # [N] key columns (ints/codes)
+    live: torch.Tensor,  # bool [N] live-row mask
+    distinct_key: torch.Tensor,  # [N] the COUNT(DISTINCT x) column
+    group_capacity: int,
+    group_validities: Optional[Sequence[Optional[torch.Tensor]]] = None,
+    distinct_validity: Optional[torch.Tensor] = None,
+) -> GroupedResult:
+    """Single-pass COUNT(DISTINCT x) GROUP BY g1..gk.
+
+    The SQL planner rewrites COUNT(DISTINCT) into a two-level aggregate
+    (dedup on (g, x), then count per g) — three sort-based groupings over
+    the same rows. This needs ONE lexicographic order over [dead, g..,
+    x] (stable argsorts chained from the minor key, as ``_lexsort``): a
+    row opens a *group* when any g-key differs from its predecessor, and
+    a *distinct pair* when additionally x differs — the per-group count
+    of pair starts IS the distinct count.
+
+    SQL semantics match the two-level rewrite exactly: NULL group keys
+    form their own group (validity rides the sort key), NULL x values are
+    never counted (but a group whose every x is NULL still appears, with
+    count 0). Groups come out in ``grouped_aggregate``'s order. The
+    result carries one aggregate: the int64 counts."""
+    group_keys = list(group_keys)
+    if not group_keys:
+        raise ExecutionError("grouped_distinct_count requires a group key")
+    if group_validities is None:
+        group_validities = [None] * len(group_keys)
+    eff_g: List[torch.Tensor] = []
+    for k, kv in zip(group_keys, group_validities):
+        if kv is not None:
+            eff_g.append(kv.to(torch.int32))
+            eff_g.append(torch.where(kv, k, torch.zeros((), dtype=k.dtype,
+                                                         device=k.device)))
+        else:
+            eff_g.append(k)
+    eff_d: List[torch.Tensor] = []
+    if distinct_validity is not None:
+        eff_d.append(distinct_validity.to(torch.int32))
+        eff_d.append(torch.where(distinct_validity, distinct_key,
+                                 torch.zeros((), dtype=distinct_key.dtype,
+                                             device=distinct_key.device)))
+    else:
+        eff_d.append(distinct_key)
+
+    n = live.shape[0]
+    dev = live.device
+    order = _lexsort([torch.logical_not(live)] + eff_g + eff_d)
+    live_sorted = live[order]
+    sg = [k[order] for k in eff_g]
+    sd = [k[order] for k in eff_d]
+
+    g_first = _run_boundaries(sg)
+    pair_first = g_first | _run_boundaries(sd)
+    starts = g_first & live_sorted
+    gid = torch.cumsum(starts.to(torch.int64), 0) - 1
+    num_groups = starts.sum(dtype=torch.int32)
+    g = group_capacity
+    seg = torch.where(live_sorted, gid.clamp(max=g), g)
+
+    # pairs whose x is NULL exist as groups' rows but never count
+    counted = pair_first & live_sorted
+    if distinct_validity is not None:
+        counted = counted & distinct_validity[order]
+    counts = _segment("sum", counted.to(torch.int64), seg, g, 0)
+
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    first_pos = _segment("amin", torch.where(live_sorted, pos, n), seg, g, n)
+    rep_indices = order[first_pos.clamp(max=n - 1)].to(torch.int32)
+    group_valid = torch.arange(g, dtype=torch.int32, device=dev) < num_groups
+    counts = torch.where(group_valid, counts, 0)
+    return GroupedResult(rep_indices, group_valid, num_groups, [counts],
+                         [group_valid])
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,11 @@ counts only when it is live and ``0 <= gid < G``.
 the CPU go to ``dense_grouped_sums_reference``; tensors on a CUDA device
 launch the kernel in ``csrc/dense_grouped_sums.cu`` (built with ``nvcc``
 for ``sm_90a`` at first use, see ``native_build.py``) or raise — there is
-no fallback. ``launch_count`` counts kernel launches, and only those.
+no fallback. ``launch_count`` counts kernel launches, and only those:
+inside a governed program captured as a CUDA graph, the capture itself
+launches nothing, and every replay of the graph adds the launches it
+holds (``compile.governor.on_replay``). ``observe`` lets a caller see
+the inputs and outputs of every executed call, replayed ones included.
 
 The kernel reads each row once and is bound by those bytes. Its launch
 plan (``plan_launches``) sets what keeps it there: R lane replicas of the
@@ -27,14 +31,16 @@ rows come from the same pass because it already reads ``gids`` and
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
+from ..compile.governor import capturing, on_replay
 from ..errors import ExecutionError
 
 THREADS = 256
@@ -43,8 +49,27 @@ MAX_REPLICAS = 32
 BLOCKS_PER_SM_WANTED = 2  # replicas shrink until this many blocks fit an SM
 
 # Kernel launches since the count was last reset (chip_smoke.py resets it
-# before driving a query and reads it after).
+# before driving a query and reads it after), replays of captured
+# launches included.
 launch_count = 0
+
+# Callables that see every executed call of the kernel, eager or replayed:
+# fn(gids, live, values, num_groups, sums, counts, first). After a replay
+# the tensors are the graph's static buffers, which the next replay
+# overwrites: an observer copies what it keeps.
+_observers: List[Callable] = []
+
+
+@contextlib.contextmanager
+def observe(fn: Callable):
+    """Register ``fn`` as an observer of kernel calls for the ``with``.
+    Graphs captured while an observer is registered keep their kernel
+    calls' static tensors so that their replays can be observed."""
+    _observers.append(fn)
+    try:
+        yield fn
+    finally:
+        _observers.remove(fn)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -265,10 +290,28 @@ def _launch(gids: torch.Tensor, live: torch.Tensor,
                     raise ExecutionError(
                         f"dense_grouped_sums kernel launch failed: "
                         f"CUDA error {err} ({what})")
-                launch_count += 1
     sums = [out[:, j] for spec, out in zip(plan.launches, outs)
             for j in range(spec.hi - spec.lo)]
-    return sums, outs[0][:, -1], first
+    counts = outs[0][:, -1]
+    n_launches = len(plan.launches) if n > 0 else 0
+    if capturing():
+        # recorded into a graph, not launched: count (and show) each replay
+        held = ((gids, live, values, num_groups, sums, counts, first)
+                if _observers else None)
+
+        def replayed():
+            global launch_count
+            launch_count += n_launches
+            if held is not None:
+                for fn in list(_observers):
+                    fn(*held)
+
+        on_replay(replayed)
+    else:
+        launch_count += n_launches
+        for fn in list(_observers):
+            fn(gids, live, values, num_groups, sums, counts, first)
+    return sums, counts, first
 
 
 def dense_grouped_sums_reference(

@@ -13,6 +13,9 @@ Conventions:
 - utf8 columns are dictionary codes; string predicates (equality, ordering,
   LIKE, substr...) are evaluated *on the host dictionary once* and become
   cheap gathers/compares over the codes on device;
+- evaluation runs inside governed programs (``compile/governor.py``), so
+  it reads nothing back from the device, and host-built tables reach it
+  through ``device_constant``;
 - scalars (literals) are 0-d tensors on the batch's device; every
   operand is cast explicitly before mixing dtypes, because torch does not
   let a 0-d tensor widen a 1-d one of the same kind (int32 column vs
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from ..columnar import Column, ColumnBatch, Dictionary
+from ..compile.governor import device_constant
 from ..datatypes import (
     Boolean,
     DataType,
@@ -83,8 +87,9 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 def _gather_clip(table: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
     """``table[codes]`` with codes clamped into range — the counterpart of
     ``jnp.take(..., mode="clip")`` (torch raises on an out-of-range index,
-    and asserts on CUDA)."""
-    t = torch.from_numpy(np.ascontiguousarray(table)).to(codes.device)
+    and asserts on CUDA). The host table reaches the device through
+    ``device_constant``, which a captured program can hold."""
+    t = device_constant(np.asarray(table), codes.device)
     if t.shape[0] == 0:
         return torch.zeros(codes.shape, dtype=t.dtype, device=codes.device)
     idx = codes.to(torch.int64).clamp(0, t.shape[0] - 1)
@@ -147,9 +152,10 @@ class Evaluator:
         v = e.value
         if e.dtype.kind == "decimal":
             v = int(round(float(v) * 10 ** e.dtype.scale))
+        # a fill, not an upload: a captured program can hold it
         return Evaluated(
-            torch.tensor(v, dtype=e.dtype.torch_dtype(), device=dev), e.dtype,
-            literal_value=e.value,
+            torch.full((), v, dtype=e.dtype.torch_dtype(), device=dev),
+            e.dtype, literal_value=e.value,
         )
 
     # ------------------------------------------------------------- wrappers

@@ -17,6 +17,16 @@ same one:
 
 Ungrouped aggregates take ``scalar_aggregate``.
 
+Each path is a governed program under the JAX package's namespaces
+(``agg.grouped``, ``agg.mixed``, ``agg.mstats``, ``agg.scalar``), with
+the host reads between programs, as there: the mixed path's statistics
+and the overflow retry's group count. ``_device_prologue`` runs inside
+every one of them, so a fused stage (``fusion.FusedStageExec``) runs its
+pipeline chain in the same program. Which path a batch takes is decided
+on the host from the keys' dtypes and dictionaries, found by running the
+prologue and key evaluation once on a few rows on the CPU
+(``_key_probe``).
+
 State layout: Partial emits "group columns + state columns" batches
 (avg -> sum+count states), Final regroups the concatenated partial tables,
 merges states, and finalizes (avg division in scaled int64 -> Decimal(6)).
@@ -29,6 +39,7 @@ from typing import Iterator, List, Optional, Tuple
 import torch
 
 from ..columnar import Column, ColumnBatch, round_capacity
+from ..compile import fingerprint
 from ..datatypes import DataType, Decimal, Field, Float64, Int64, Schema
 from ..errors import ExecutionError, NotImplementedError_
 from .. import expr as ex
@@ -48,6 +59,31 @@ from .base import PhysicalPlan, Partitioning, concat_batches
 DENSE_GROUP_LIMIT = 256
 
 DEFAULT_GROUP_CAPACITY = 1 << 12
+
+
+_PROBE_ROWS = 8
+
+
+def _probe_batch(batch: ColumnBatch) -> ColumnBatch:
+    """A batch of ``_PROBE_ROWS`` live rows on the CPU with ``batch``'s
+    schema, dtypes, dictionaries and validity masks, every value 1 (a
+    divisor, a code and a date alike). Running the chain and the key
+    evaluation on it tells the host which dtypes and dictionaries the
+    grouping programs will see, without touching the card (the JAX
+    package traces ``eval_shape``; meta tensors would do too, but their
+    first use imports several seconds of torch's tracing machinery)."""
+
+    def ones(t):
+        if t is None:
+            return None
+        return torch.ones((_PROBE_ROWS,) + tuple(t.shape[1:]),
+                          dtype=t.dtype)
+
+    cols = [Column(ones(c.values), c.dtype, ones(c.validity), c.dictionary)
+            for c in batch.columns]
+    return ColumnBatch(batch.schema, cols,
+                       torch.ones(_PROBE_ROWS, dtype=torch.bool),
+                       torch.full((), _PROBE_ROWS, dtype=torch.int32))
 
 
 def _state_ops(agg: ex.AggregateExpr):
@@ -109,6 +145,8 @@ class HashAggregateExec(PhysicalPlan):
             if not isinstance(a, ex.AggregateExpr):
                 raise ExecutionError(f"not an aggregate expression: {name}")
         self._ranged_rejected = False
+        # (dictionary-length fingerprint, _key_probe result) or None
+        self._probe_cache = None
 
     # -- schemas ------------------------------------------------------------
 
@@ -181,7 +219,23 @@ class HashAggregateExec(PhysicalPlan):
         a = ", ".join(n for n, _ in self._aggs)
         return f"HashAggregateExec: mode={self.mode} gby=[{g}] aggr=[{a}]"
 
+    def with_new_children(self, children):
+        return HashAggregateExec(
+            self.mode, self.group_exprs, self.agg_exprs, children[0],
+            self.group_capacity,
+        )
+
+    def _signature_parts(self) -> tuple:
+        return (self.mode, fingerprint(self.group_exprs),
+                fingerprint(self.agg_exprs), self._in_schema)
+
     # -- execution ----------------------------------------------------------
+
+    def _device_prologue(self, batch: ColumnBatch) -> ColumnBatch:
+        """Batch transform applied INSIDE every aggregation program, before
+        key/input evaluation. Identity here; ``fusion.FusedStageExec``
+        overrides it with the fused pipeline chain."""
+        return batch
 
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         batches = list(self.child.execute(partition))
@@ -194,6 +248,28 @@ class HashAggregateExec(PhysicalPlan):
             yield self._exec_grouped(batch)
 
     # grouped ---------------------------------------------------------------
+
+    def _key_probe(self, batch: ColumnBatch):
+        """(post-prologue batch, key evaluations) over ``_probe_batch``:
+        the dtypes, dictionaries and validity masks the grouping programs
+        will see, found on the host. None when the chain cannot run on
+        the probe rows (the JAX package's unprobeable chain). Cached per
+        dictionary-length fingerprint, as the JAX package caches its
+        probes: the layouts read only the lengths."""
+        fp = tuple(len(c.dictionary) if c.dictionary is not None else -1
+                   for c in batch.columns)
+        cached = self._probe_cache
+        if cached is not None and cached[0] == fp:
+            return cached[1]
+        tw = self.trace_twin()
+        try:
+            post = tw._device_prologue(_probe_batch(batch))
+            key_evals, _ = tw._inputs_and_keys(post)
+            probe = (post, key_evals)
+        except (NotImplementedError, RuntimeError):
+            probe = None  # unprobeable: no static bound, no mixed layout
+        self._probe_cache = (fp, probe)
+        return probe
 
     def _agg_inputs_partial(self, batch: ColumnBatch) -> List[AggInput]:
         aggs: List[AggInput] = []
@@ -317,63 +393,110 @@ class HashAggregateExec(PhysicalPlan):
                 return None
         return layout
 
-    def _mixed_stats(self, batch: ColumnBatch, layout, key_evals):
-        """(per-int-key (min, max) list, live rows): one host fetch."""
-        i64_max = torch.iinfo(torch.int64).max
-        vals = []
-        for (kind, _), r in zip(layout, key_evals):
-            if kind != "int":
-                continue
-            v = torch.broadcast_to(r.values, (batch.capacity,)).to(torch.int64)
-            live = batch.selection
-            if r.validity is not None:
-                live = live & r.validity
-            vals += [torch.where(live, v, i64_max).min(),
-                     torch.where(live, v, -i64_max).max()]
-        vals.append(batch.selection.sum(dtype=torch.int64))
-        host = torch.stack(vals).tolist()
+    def _mixed_stats(self, batch: ColumnBatch, layout):
+        """(per-int-key (min, max) list, live rows): one governed program,
+        then one host fetch of its stacked scalars."""
+
+        def build():
+            tw = self.trace_twin()
+
+            def stats(b: ColumnBatch):
+                b = tw._device_prologue(b)
+                kes, _ = tw._inputs_and_keys(b)
+                i64_max = torch.iinfo(torch.int64).max
+                vals = []
+                for (kind, _), r in zip(layout, kes):
+                    if kind != "int":
+                        continue
+                    v = torch.broadcast_to(r.values,
+                                           (b.capacity,)).to(torch.int64)
+                    live = b.selection
+                    if r.validity is not None:
+                        live = live & r.validity
+                    vals += [torch.where(live, v, i64_max).min(),
+                             torch.where(live, v, -i64_max).max()]
+                vals.append(b.selection.sum(dtype=torch.int64))
+                return torch.stack(vals)
+
+            return stats
+
+        fn = self.governed_jit(("agg.mstats", tuple(layout)), build)
+        host = fn(batch).tolist()  # the one host read, between programs
         return list(zip(host[:-1:2], host[1:-1:2])), host[-1]
 
-    def _mixed_grouping(self, batch: ColumnBatch, key_evals, aggs, layout,
-                        spans, bases):
-        """Mixed-radix gid over per-key slots (slot 0 of each radix =
-        NULL), O(N) scatter aggregation. The table is padded to a power
-        of two; gids stay below the exact product of the spans."""
-        g_total = 1
-        for sp in spans:
-            g_total *= sp
-        g = round_capacity(g_total)
-        gid = torch.zeros((batch.capacity,), dtype=torch.int64,
-                          device=batch.device)
-        bi = 0
-        for (kind, _), span, r in zip(layout, spans, key_evals):
-            v = torch.broadcast_to(r.values, (batch.capacity,)).to(torch.int64)
-            if kind == "dict":
-                c = v + 1
-            else:
-                c = v - bases[bi] + 1
-                bi += 1
-            if r.validity is not None:
-                c = torch.where(r.validity, c, 0)
-            gid = gid * span + c
-        res = dense_grouped_scatter(gid.to(torch.int32), batch.selection,
-                                    aggs, g)
-        return res, g
+    def _mixed_build(self, spans, layout):
+        """Grouping program for mixed dict/ranged-int keys: mixed-radix gid
+        over per-key slots (slot 0 of each radix = NULL), O(N) scatter
+        aggregation, no sort and no overflow. The integer keys' bases are
+        an argument, so batches whose ranges quantize to the same spans
+        share one program. The table is padded to a power of two; gids
+        stay below the exact product of the spans."""
+
+        def build():
+            tw = self.trace_twin()
+            g_total = 1
+            for sp in spans:
+                g_total *= sp
+            g = round_capacity(g_total)
+
+            def run(b: ColumnBatch, bases):
+                b = tw._device_prologue(b)
+                key_evals, aggs = tw._inputs_and_keys(b)
+                gid = torch.zeros((b.capacity,), dtype=torch.int64,
+                                  device=b.device)
+                bi = 0
+                for (kind, _), span, r in zip(layout, spans, key_evals):
+                    v = torch.broadcast_to(r.values,
+                                           (b.capacity,)).to(torch.int64)
+                    if kind == "dict":
+                        c = v + 1
+                    else:
+                        c = v - bases[bi] + 1
+                        bi += 1
+                    if r.validity is not None:
+                        c = torch.where(r.validity, c, 0)
+                    gid = gid * span + c
+                res = dense_grouped_scatter(gid.to(torch.int32), b.selection,
+                                            aggs, g)
+                return tw._assemble(b, key_evals, res, g), res.num_groups
+
+            return run
+
+        return build
+
+    def _grouped_fn(self, cap: int):
+        """The ``agg.grouped`` program at group capacity ``cap``: dense
+        (the CUDA kernel's path) or sort-based grouping, picked inside
+        from the keys' dictionaries."""
+
+        def build():
+            tw = self.trace_twin()  # don't pin the input subtree
+
+            def run(b: ColumnBatch):
+                b = tw._device_prologue(b)
+                key_evals, aggs = tw._inputs_and_keys(b)
+                res = tw._run_grouping(b, key_evals, aggs, cap)
+                return tw._assemble(b, key_evals, res, cap), res.num_groups
+
+            return run
+
+        return self.governed_jit(("agg.grouped", cap), build)
 
     def _exec_grouped(self, batch: ColumnBatch) -> ColumnBatch:
-        key_evals, aggs = self._inputs_and_keys(batch)
         cap = self.group_capacity
-        bound = self._static_group_bound(batch)
+        probe = self._key_probe(batch)
+        bound = (self._static_group_bound(probe[0])
+                 if probe is not None else None)
         if bound is not None and bound <= min(DENSE_GROUP_LIMIT, cap):
             # the dense path: cannot overflow, no sync needed
-            res = self._run_grouping(batch, key_evals, aggs, cap)
-            return self._assemble(batch, key_evals, res, cap)
+            out, _ng = self._grouped_fn(cap)(batch)
+            return out
         # rejected once (hash-like sparse ids / huge products) -> rejected
         # for the operator's lifetime: don't pay the stats fetch again
-        layout = None if self._ranged_rejected else \
-            self._mixed_layout(key_evals)
+        layout = None if (self._ranged_rejected or probe is None) else \
+            self._mixed_layout(probe[1])
         if layout is not None:
-            mm, nlive = self._mixed_stats(batch, layout, key_evals)
+            mm, nlive = self._mixed_stats(batch, layout)
             if not any(lo > hi for lo, hi in mm):
                 # (no live rows: the sort path handles the empty batch)
                 spans, bases = [], []
@@ -396,19 +519,22 @@ class HashAggregateExec(PhysicalPlan):
                 # product; the quantized table must fit the absolute cap
                 if (true_total <= self._RANGED_CAP_FACTOR * (nlive + 256)
                         and g_total <= self._RANGED_DENSE_LIMIT):
-                    res, g = self._mixed_grouping(batch, key_evals, aggs,
-                                                  layout, spans, bases)
-                    return self._assemble(batch, key_evals, res, g)
+                    fn = self.governed_jit(
+                        ("agg.mixed", tuple(spans), tuple(layout)),
+                        self._mixed_build(tuple(spans), layout))
+                    out, _ng = fn(batch, torch.tensor(
+                        bases, dtype=torch.int64, device=batch.device))
+                    return out  # gid < G by construction: no overflow
                 self._ranged_rejected = True
         # sort path with the overflow retry
         while True:
-            res = self._run_grouping(batch, key_evals, aggs, cap)
-            ng = int(res.num_groups)
+            out, num_groups = self._grouped_fn(cap)(batch)
+            ng = int(num_groups)  # between programs
             if ng <= cap:
                 # persist the learned capacity: the operator is reused
                 # across partitions and collects
                 self.group_capacity = max(self.group_capacity, cap)
-                return self._assemble(batch, key_evals, res, cap)
+                return out
             cap = round_capacity(ng)
 
     def _inputs_and_keys(self, batch: ColumnBatch):
@@ -480,11 +606,20 @@ class HashAggregateExec(PhysicalPlan):
     # ungrouped -------------------------------------------------------------
 
     def _exec_scalar(self, batch: ColumnBatch) -> ColumnBatch:
-        if self.mode == "partial":
-            aggs = self._agg_inputs_partial(batch)
-        else:
-            aggs = self._agg_inputs_final(batch)
-        vals, valids = scalar_aggregate(batch.selection, aggs)
+        def build():
+            tw = self.trace_twin()
+
+            def run(b: ColumnBatch):
+                b = tw._device_prologue(b)
+                if tw.mode == "partial":
+                    aggs = tw._agg_inputs_partial(b)
+                else:
+                    aggs = tw._agg_inputs_final(b)
+                return scalar_aggregate(b.selection, aggs)
+
+            return run
+
+        vals, valids = self.governed_jit(("agg.scalar",), build)(batch)
 
         cap = 8
         dev = batch.device
@@ -537,4 +672,4 @@ class HashAggregateExec(PhysicalPlan):
         sel = torch.zeros((cap,), dtype=torch.bool, device=dev)
         sel[0] = True
         return ColumnBatch(schema, cols, sel,
-                           torch.tensor(1, dtype=torch.int32, device=dev))
+                           torch.ones((), dtype=torch.int32, device=dev))

@@ -2,9 +2,14 @@
 
 The port of the JAX package's ``physical/base.py``. Execution model:
 ``execute(partition)`` yields ColumnBatches (host-driven volcano at batch
-granularity). Pipeline operators (filter/projection) are applied to each
-batch in turn as eager torch ops; the JAX package's governed jit, fusion,
-donation and compile signatures have no counterpart here yet.
+granularity), and each operator's device work runs as governed programs
+(``compile/governor.py``): eager torch ops on the CPU, one captured CUDA
+graph per call signature on a card. A chain of pipeline operators
+(filter/projection) runs as one such program per batch; whole-stage
+fusion (``fusion.py``) folds chains into the aggregate or join program
+they feed. Operators key their programs on ``compile_signature`` and
+hand the governor closures over a config-only ``trace_twin``. The JAX
+package's donating ``governed_call`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ import numpy as np
 import torch
 
 from ..columnar import Column, ColumnBatch, Dictionary
-from ..compile import bucket_capacity
+from ..compile import bucket_capacity, governed
 from ..datatypes import Schema
 from ..errors import ExecutionError
 from ..observability.metrics import MetricsSet, instrument_execute
@@ -53,6 +58,64 @@ class PhysicalPlan:
             m = self._metrics = MetricsSet()
         return m
 
+    # -- compile governor ---------------------------------------------------
+
+    def compile_signature(self) -> tuple:
+        """Value-signature of everything this operator's governed closures
+        read from instance state. Governed keys include it, so two
+        instances with equal signatures (e.g. the same operator before
+        and after a re-plan) share one entry. The default covers
+        operators whose ``display()`` renders their full configuration;
+        operators with more state override ``_signature_parts``."""
+        sig = getattr(self, "_compile_sig", None)
+        if sig is None:
+            sig = self._compile_sig = (
+                (type(self).__name__,) + self._signature_parts()
+            )
+        return sig
+
+    def _signature_parts(self) -> tuple:
+        return (self.display(), self.output_schema())
+
+    def governed_jit(self, subkey: tuple, build):
+        """Process-wide governed function for this operator under
+        ``subkey`` (namespace first); first calls are attributed to this
+        operator's metrics. The name is the JAX package's: here it is a
+        program cache, eager on the CPU and CUDA graphs on a card."""
+        key = (subkey[0], self.compile_signature()) + tuple(subkey[1:])
+        return governed(key, build, metrics=self.metrics())
+
+    def trace_twin(self) -> "PhysicalPlan":
+        """Config-only shallow clone for governed closures to capture.
+
+        Governed entries outlive operator instances, so a closure over
+        ``self`` would pin the whole plan subtree — scan batches,
+        repartitioned batches, join build tables — for as long as the
+        entry lives. The twin carries what the closures read
+        (mode/exprs/schemas/evaluators) while ``_detach`` severs children
+        and data caches. Closures passed to ``governed_jit`` must
+        reference the twin, never ``self``."""
+        tw = getattr(self, "_trace_twin", None)
+        if tw is None:
+            import copy
+
+            tw = copy.copy(self)
+            self._trace_twin = tw
+            tw._trace_twin = tw  # twin of the twin is itself
+            tw._metrics = None
+            tw._detach()
+        return tw
+
+    def _detach(self) -> None:
+        """Sever plan-subtree and materialized-state references on a
+        trace twin (runs on the COPY). Default: the child becomes a
+        schema-only leaf. Operators whose closures read other heavy
+        members override and extend."""
+        if getattr(self, "child", None) is not None:
+            self.child = SchemaLeaf(self.child.output_schema())
+        if getattr(self, "_fused_fn", None) is not None:
+            self._fused_fn = None  # no entry->twin->entry cycles
+
     def output_schema(self) -> Schema:
         raise NotImplementedError
 
@@ -64,6 +127,9 @@ class PhysicalPlan:
 
     def children(self) -> List["PhysicalPlan"]:
         return []
+
+    def with_new_children(self, children: List["PhysicalPlan"]) -> "PhysicalPlan":
+        raise NotImplementedError(type(self).__name__)
 
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         raise NotImplementedError(type(self).__name__)
@@ -105,11 +171,25 @@ class PhysicalPlan:
         return out
 
 
+class SchemaLeaf(PhysicalPlan):
+    """Schema-only placeholder standing in for a severed child on a
+    trace twin. Never executed."""
+
+    def __init__(self, schema: Schema):
+        self._schema = schema
+
+    def output_schema(self) -> Schema:
+        return self._schema
+
+    def with_new_children(self, children):
+        return self
+
+
 class PipelineOp(PhysicalPlan):
     """Operator whose work is a pure batch->batch device transform.
 
-    A chain of PipelineOps is applied batch by batch by its outermost
-    operator, as the JAX package's fused chain is.
+    A chain of PipelineOps runs as one governed program per batch, called
+    by its outermost operator, as the JAX package's fused chain is.
     """
 
     child: PhysicalPlan
@@ -133,17 +213,42 @@ class PipelineOp(PhysicalPlan):
         chain.reverse()  # innermost transform first
         return chain, node
 
+    def _fused_governed(self):
+        """Governed transform for this operator's pipeline chain, keyed
+        on the chain's operator signatures, so a re-planned chain (fresh
+        instances, same logical chain) reuses its programs."""
+        fused = getattr(self, "_fused_fn", None)
+        if fused is None:
+            chain, _ = self._pipeline_chain()
+
+            def build():
+                # twins: device_transform reads exprs/evaluators, never
+                # .child — the live ops would pin the source's batches
+                twins = [op.trace_twin() for op in chain]
+
+                def apply_all(batch):
+                    for op in twins:
+                        batch = op.device_transform(batch)
+                    return batch
+
+                return apply_all
+
+            key = ("pipeline.fused",
+                   tuple(op.compile_signature() for op in chain))
+            fused = self._fused_fn = governed(key, build,
+                                              metrics=self.metrics())
+        return fused
+
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         chain, source = self._pipeline_chain()
+        fused = self._fused_governed()
         # Adaptive, as in the JAX package: after 2 consecutive batches
         # that decline to compact, stop paying the per-batch live-count
         # sync; the learned capacity floor keeps later batches from
         # compacting to ever-different ladder rungs.
         compact = any(op.compactable for op in chain)
         for batch in source.execute(partition):
-            out = batch
-            for op in chain:
-                out = op.device_transform(out)
+            out = fused(batch)
             if compact and getattr(self, "_compact_misses", 0) < 2:
                 res = maybe_compact(
                     out, floor=getattr(self, "_compact_floor", 8))
@@ -243,10 +348,17 @@ def maybe_compact(batch: ColumnBatch, shrink_factor: int = 4,
     new_cap = max(bucket_capacity(n), floor, 8)
     if new_cap * shrink_factor > cap:
         return batch
-    perm = compact_perm(batch.selection, new_cap)
-    live = torch.arange(new_cap, dtype=torch.int32,
-                        device=batch.device) < batch.num_rows
-    return take_batch(batch, perm, live)
+
+    def build(_new=new_cap):
+        def compact(b: ColumnBatch) -> ColumnBatch:
+            perm = compact_perm(b.selection, _new)
+            live = torch.arange(_new, dtype=torch.int32,
+                                device=b.device) < b.num_rows
+            return take_batch(b, perm, live)
+
+        return compact
+
+    return governed(("batch.compact", new_cap), build)(batch)
 
 
 def pad_batch(batch: ColumnBatch, capacity: int) -> ColumnBatch:
@@ -272,11 +384,17 @@ def pad_batch(batch: ColumnBatch, capacity: int) -> ColumnBatch:
 
 def compact_perm(selection: torch.Tensor, size: int) -> torch.Tensor:
     """Gather permutation of ``size`` entries putting live rows first, in
-    order, padded with 0 — ``jnp.nonzero(size=, fill_value=0)``."""
-    idx = torch.nonzero(selection, as_tuple=True)[0][:size]
-    out = torch.zeros((size,), dtype=torch.int64, device=selection.device)
-    out[: idx.shape[0]] = idx
-    return out.to(torch.int32)
+    order, padded with 0 — ``jnp.nonzero(size=, fill_value=0)`` — without
+    reading the live count back to the host: each live row's rank (a
+    cumsum) is its slot, live rows past ``size`` and dead rows go to a
+    trash slot that is sliced off."""
+    n = selection.shape[0]
+    dev = selection.device
+    rank = torch.cumsum(selection.to(torch.int64), 0) - 1
+    slot = torch.where(selection & (rank < size), rank, size)
+    out = torch.zeros((size + 1,), dtype=torch.int64, device=dev)
+    out.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=dev))
+    return out[:size].to(torch.int32)
 
 
 def take_batch(batch: ColumnBatch, perm: torch.Tensor,

@@ -13,12 +13,16 @@ which logical side becomes the probe accordingly), semi, anti (also the
 null-aware anti join behind ``NOT IN``), and full (a probe-preserving
 pass plus one batch of unmatched build rows).
 
-Everything runs as eager torch ops on the batches' device. Only host
-scalars cross to the host: the build statistics (one fetch), the
+The probe side runs as governed programs under the JAX package's
+namespaces (``join.stats``, ``join.unique``, ``join.expand``,
+``join.unmatched``, ``join.mark``), captured as CUDA graphs on a card; the
+build tables are eager torch ops, once per build. Only host scalars cross
+to the host, between programs: the build statistics (one fetch), the
 uniqueness and duplicate flags, and the expanding probe's match totals
-(one fetch per window of batches). Not ported yet, with stage fusion: the
-fused probe chain (``probe_chain``, ``probe_key_raw``) and the adaptive
-rewrite note.
+(one fetch per window of batches). Whole-stage fusion (``fusion.py``)
+may hand the join a ``probe_chain``: the Filter/Projection chain that fed
+its probe side, applied inside every probe program, with
+``probe_key_raw`` naming each probe key's column before the chain.
 """
 
 from __future__ import annotations
@@ -62,6 +66,9 @@ class JoinExec(PhysicalPlan):
         null_aware: bool = False,
         partitioned: bool = False,
         device=None,
+        adaptive_note: Optional[str] = None,
+        probe_chain: Optional[List] = None,
+        probe_key_raw: Optional[dict] = None,
     ):
         if how not in JOIN_TYPES:
             raise NotImplementedError_(f"join type {how}")
@@ -78,11 +85,51 @@ class JoinExec(PhysicalPlan):
         self.partitioned = partitioned
         # where an empty hash partition's all-dead build batch is made
         self.device = torch.device(device) if device is not None else None
+        # set when an adaptive rewrite changed this join (EXPLAIN surface;
+        # the port has no adaptive pass yet, fusion carries it over)
+        self.adaptive_note = adaptive_note
+        # whole-stage fusion: the Filter/Projection chain that used to feed
+        # the probe side, applied INSIDE every probe program. When set,
+        # ``probe`` is the chain's SOURCE; ``probe_key_raw`` maps each
+        # post-chain probe key column to its raw source column (for the
+        # host-side dictionary remap).
+        self.probe_chain = tuple(probe_chain or ())
+        self.probe_key_raw = dict(probe_key_raw or {})
         # partition -> (table, batch, unique, has_null, key mode,
         #               codec tables, build keys, build live)
         self._build_data = {}
         self._remap_cache = {}
         self._expand_cap_floor = 0
+
+    def _signature_parts(self) -> tuple:
+        # partitioned/adaptive_note steer HOST orchestration only — no
+        # governed closure reads them. A fused probe chain runs inside the
+        # programs, so its signatures ride the key.
+        return (self.how, tuple(self.on), self.null_aware,
+                self.build.output_schema(), self._probe_out_schema(),
+                tuple(op.compile_signature() for op in self.probe_chain))
+
+    def _probe_out_schema(self) -> Schema:
+        """Schema of probe batches AFTER the fused chain (the probe
+        child's schema when nothing is fused)."""
+        if self.probe_chain:
+            return self.probe_chain[-1].output_schema()
+        return self.probe.output_schema()
+
+    def _probe_prologue(self, pb: ColumnBatch) -> ColumnBatch:
+        """Fused probe-side chain (innermost first), inside programs."""
+        for op in self.probe_chain:
+            pb = op.device_transform(pb)
+        return pb
+
+    def _detach(self) -> None:
+        from .base import SchemaLeaf
+
+        self.build = SchemaLeaf(self.build.output_schema())
+        self.probe = SchemaLeaf(self.probe.output_schema())
+        self.probe_chain = tuple(op.trace_twin() for op in self.probe_chain)
+        self._build_data = {}   # materialized build-side device buffers
+        self._remap_cache = {}  # per-query dictionaries
 
     # -- composite keys ------------------------------------------------------
     #
@@ -118,27 +165,40 @@ class JoinExec(PhysicalPlan):
 
     def _build_stats(self, bb: ColumnBatch, cols: List[str]):
         """(host scalars, device live mask): per-col min/max over selected
-        rows, live-key min/max for the first col, null-key flag. Only the
-        scalars cross to the host, in one fetch; the combined live mask
-        stays on the device for the build to reuse."""
-        live_ext = self._key_live_ext(bb, cols)
-        live = _and(bb.selection, live_ext)
-        if live_ext is not None:
-            has_null = torch.any(bb.selection & ~live_ext)
-        else:
-            has_null = torch.zeros((), dtype=torch.bool, device=bb.device)
+        rows, live-key min/max for the first col, null-key flag — one
+        program, then one fetch of its stacked scalars. The combined live
+        mask stays on the device for the build to reuse."""
         names = ["has_null", "nlive"]
-        vals = [has_null.to(torch.int64), live.sum(dtype=torch.int64)]
-        for i, c in enumerate(cols):
-            v = bb.column(c).values.to(torch.int64)
+        for i in range(len(cols)):
             names += [f"sel_min_{i}", f"sel_max_{i}"]
-            vals += [torch.where(bb.selection, v, _I64_MAX).min(),
-                     torch.where(bb.selection, v, -_I64_MAX).max()]
-        v0 = bb.column(cols[0]).values.to(torch.int64)
         names += ["live_min", "live_max"]
-        vals += [torch.where(live, v0, _I64_MAX).min(),
-                 torch.where(live, v0, -_I64_MAX).max()]
-        host = torch.stack(vals).tolist()  # ONE sync
+
+        def build():
+            tw = self.trace_twin()
+
+            def stats(bb: ColumnBatch):
+                live_ext = tw._key_live_ext(bb, cols)
+                live = _and(bb.selection, live_ext)
+                if live_ext is not None:
+                    has_null = torch.any(bb.selection & ~live_ext)
+                else:
+                    has_null = torch.zeros((), dtype=torch.bool,
+                                           device=bb.device)
+                vals = [has_null.to(torch.int64),
+                        live.sum(dtype=torch.int64)]
+                for c in cols:
+                    v = bb.column(c).values.to(torch.int64)
+                    vals += [torch.where(bb.selection, v, _I64_MAX).min(),
+                             torch.where(bb.selection, v, -_I64_MAX).max()]
+                v0 = bb.column(cols[0]).values.to(torch.int64)
+                vals += [torch.where(live, v0, _I64_MAX).min(),
+                         torch.where(live, v0, -_I64_MAX).max()]
+                return torch.stack(vals), live
+
+            return stats
+
+        scalars, live = self.governed_jit(("join.stats",), build)(bb)
+        host = scalars.tolist()  # ONE sync, between programs
         return dict(zip(names, host)), live
 
     def _pick_mode(self, stats, ncols: int) -> str:
@@ -205,7 +265,7 @@ class JoinExec(PhysicalPlan):
     # -- schema -------------------------------------------------------------
 
     def output_schema(self) -> Schema:
-        bs, ps = self.build.output_schema(), self.probe.output_schema()
+        bs, ps = self.build.output_schema(), self._probe_out_schema()
         if self.how in ("semi", "anti"):
             return ps
         seen = {f.name for f in bs.fields}
@@ -231,6 +291,12 @@ class JoinExec(PhysicalPlan):
     def children(self):
         return [self.build, self.probe]
 
+    def with_new_children(self, children):
+        return JoinExec(children[0], children[1], self.on, self.how,
+                        self.null_aware, self.partitioned, self.device,
+                        self.adaptive_note, list(self.probe_chain),
+                        self.probe_key_raw)
+
     def release(self) -> None:
         self._build_data = {}
         self._remap_cache = {}
@@ -238,7 +304,14 @@ class JoinExec(PhysicalPlan):
     def display(self) -> str:
         on = ", ".join(f"{l}={r}" for l, r in self.on)
         part = " partitioned" if self.partitioned else ""
-        return f"JoinExec: how={self.how} on=[{on}]{part}"
+        note = f" [adaptive: {self.adaptive_note}]" if self.adaptive_note \
+            else ""
+        fused = ""
+        if self.probe_chain:
+            ops = "→".join(type(op).__name__.replace("Exec", "")
+                           for op in self.probe_chain)
+            fused = f" [fused probe: {ops}]"
+        return f"JoinExec: how={self.how} on=[{on}]{part}{note}{fused}"
 
     # -- execution ----------------------------------------------------------
 
@@ -279,11 +352,16 @@ class JoinExec(PhysicalPlan):
                 size = round_capacity(size)
                 rows, dup = join_k.build_dense(keys, live, base, size)
                 if not bool(dup):
+                    # 0-d tensors, not Python ints: a probe program takes
+                    # them as arguments, so every partition's build shares
+                    # one program
                     table = join_k.BuildTable(
                         sorted_keys=None, order=None,
-                        num_live=torch.tensor(nlive, dtype=torch.int64,
-                                              device=bb.device),
-                        dense_rows=rows, dense_base=base)
+                        num_live=torch.full((), nlive, dtype=torch.int64,
+                                            device=bb.device),
+                        dense_rows=rows,
+                        dense_base=torch.full((), base, dtype=torch.int64,
+                                              device=bb.device))
         if table is None:
             table, uniq = join_k.build_sorted_with_unique(keys, live)
             unique = bool(uniq)
@@ -303,6 +381,12 @@ class JoinExec(PhysicalPlan):
         if self.how == "anti" and self.null_aware and has_null_key:
             # SQL NOT IN with a NULL in the subquery: predicate is never
             # true -> empty result
+            if self.probe_chain:
+                # raw probe batches carry the SOURCE schema; emit one
+                # all-dead batch of the (post-chain) output schema
+                yield empty_batch(self.output_schema(),
+                                  build_batch.device)
+                return
             for pb in self.probe.execute(partition):
                 yield pb.with_selection(torch.zeros_like(pb.selection))
             return
@@ -348,15 +432,26 @@ class JoinExec(PhysicalPlan):
     def _mark_hits(self, pb, mode, key_tables, remaps, bkeys, blive):
         """bool [build_cap]: build rows whose key appears among this probe
         batch's live keys (reverse membership probe; duplicates fine)."""
-        pkeys, plive = self._probe_keys(pb, mode, key_tables, remaps)
-        pt = join_k.build_lookup(pkeys, plive)
-        _, matched = join_k.probe_unique(pt, bkeys, blive)
-        return blive & matched
+
+        def build():
+            tw = self.trace_twin()
+
+            def run(pb, key_tables, remaps, bkeys, blive):
+                pb = tw._probe_prologue(pb)
+                pkeys, plive = tw._probe_keys(pb, mode, key_tables, remaps)
+                pt = join_k.build_lookup(pkeys, plive)
+                _, matched = join_k.probe_unique(pt, bkeys, blive)
+                return blive & matched
+
+            return run
+
+        fn = self.governed_jit(("join.mark", mode), build)
+        return fn(pb, key_tables, remaps, bkeys, blive)
 
     def _unmatched_build_batch(self, bb: ColumnBatch,
                                unmatched) -> ColumnBatch:
         schema = self.output_schema()
-        ps = self.probe.output_schema()
+        ps = self._probe_out_schema()
         cols = []
         for f in schema.fields:
             if bb.schema.has_field(f.name):
@@ -416,7 +511,10 @@ class JoinExec(PhysicalPlan):
         out = []
         for bcol, pcol in self.on:
             bd = build_batch.column(bcol).dictionary
-            pd_ = pb.column(pcol).dictionary
+            # with a fused probe chain, pb is a RAW source batch: read the
+            # key column under its pre-chain name (fusion guarantees probe
+            # keys pass through the chain as plain references)
+            pd_ = pb.column(self.probe_key_raw.get(pcol, pcol)).dictionary
             if bd is None and pd_ is None:
                 out.append(None)
                 continue
@@ -442,10 +540,20 @@ class JoinExec(PhysicalPlan):
 
     def _probe_unique_batch(self, table, build_batch, pb: ColumnBatch,
                             mode: str, key_tables, remaps) -> ColumnBatch:
-        pkeys, plive = self._probe_keys(pb, mode, key_tables, remaps)
-        build_rows, matched = join_k.probe_unique(table, pkeys, plive)
-        return self._assemble(build_batch, pb, build_rows, matched,
-                              pb.selection)
+        def build():
+            tw = self.trace_twin()
+
+            def run(table, bb, pb, key_tables, remaps):
+                pb = tw._probe_prologue(pb)
+                pkeys, plive = tw._probe_keys(pb, mode, key_tables, remaps)
+                build_rows, matched = join_k.probe_unique(table, pkeys, plive)
+                return tw._assemble(bb, pb, build_rows, matched,
+                                    pb.selection)
+
+            return run
+
+        fn = self.governed_jit(("join.unique", mode), build)
+        return fn(table, build_batch, pb, key_tables, remaps)
 
     # general path: expanding probe -----------------------------------------
 
@@ -453,23 +561,45 @@ class JoinExec(PhysicalPlan):
                     out_cap: int):
         """One expanding probe at a fixed output capacity. Returns
         (out_batch, total_matches 0-d tensor) without syncing."""
-        pkeys, plive = self._probe_keys(pb, mode, key_tables, remaps)
-        prows, brows, olive, total = join_k.probe_expand(
-            table, pkeys, plive, out_cap)
-        return self._assemble_expanded(build_batch, pb, prows, brows,
-                                       olive), total
+
+        def build():
+            tw = self.trace_twin()
+
+            def run(table, bb, pb, key_tables, remaps):
+                pb = tw._probe_prologue(pb)
+                pkeys, plive = tw._probe_keys(pb, mode, key_tables, remaps)
+                prows, brows, olive, total = join_k.probe_expand(
+                    table, pkeys, plive, out_cap)
+                return tw._assemble_expanded(bb, pb, prows, brows,
+                                             olive), total
+
+            return run
+
+        fn = self.governed_jit(("join.expand", mode, out_cap), build)
+        return fn(table, build_batch, pb, key_tables, remaps)
 
     def _unmatched_batch(self, table, build_batch, pb, mode, key_tables,
                          remaps) -> ColumnBatch:
         """left/full: preserved probe rows with no match, null build
         columns. No sync."""
-        pkeys, plive = self._probe_keys(pb, mode, key_tables, remaps)
-        counts = join_k.probe_counts(table, pkeys)
-        unmatched = pb.selection & (~plive | (counts == 0))
-        zero = torch.zeros((pb.capacity,), dtype=torch.int32,
-                           device=pb.device)
-        return self._assemble(build_batch, pb, zero,
-                              torch.zeros_like(unmatched), unmatched)
+
+        def build():
+            tw = self.trace_twin()
+
+            def run(table, bb, pb, key_tables, remaps):
+                pb = tw._probe_prologue(pb)
+                pkeys, plive = tw._probe_keys(pb, mode, key_tables, remaps)
+                counts = join_k.probe_counts(table, pkeys)
+                unmatched = pb.selection & (~plive | (counts == 0))
+                zero = torch.zeros((pb.capacity,), dtype=torch.int32,
+                                   device=pb.device)
+                return tw._assemble(bb, pb, zero,
+                                    torch.zeros_like(unmatched), unmatched)
+
+            return run
+
+        fn = self.governed_jit(("join.unmatched", mode), build)
+        return fn(table, build_batch, pb, key_tables, remaps)
 
     def _probe_expand_stream(self, table, build_batch, probe_iter,
                              mode: str, key_tables) -> Iterator[ColumnBatch]:
@@ -490,7 +620,7 @@ class JoinExec(PhysicalPlan):
             f.dtype.device_dtype().itemsize * (getattr(f.dtype, "length", 0)
                                                or 1)
             for f in list(self.output_schema().fields)
-            + list(self.probe.output_schema().fields))
+            + list(self._probe_out_schema().fields))
         pend: list = []
         pend_bytes = 0
 

@@ -2,18 +2,25 @@
 sort, limit, repartition, empty.
 
 The port of the JAX package's ``physical/operators.py``. Filter and
-Projection are PipelineOps, applied batch by batch by the outermost
-operator of their chain.
+Projection are PipelineOps: their chain runs as one governed program per
+batch, called by its outermost operator, unless fusion folds it into the
+aggregate or join program it feeds. Sort, limit and the repartition's
+per-batch sort and per-partition gather are governed programs under the
+JAX package's namespaces (``sort.run``, ``limit.take``,
+``repart.sort_by_pid``, ``repart.take``); the repartition's count fetch
+stays between them, on the host.
 """
 
 from __future__ import annotations
 
 from typing import Iterator, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..columnar import ColumnBatch
-from ..compile import bucket_capacity
+from ..compile import bucket_capacity, fingerprint
+from ..compile.governor import device_constant
 from ..datatypes import Schema
 from ..errors import ExecutionError
 from .. import expr as ex
@@ -43,9 +50,8 @@ def compute_partition_ids(batch: ColumnBatch, hash_exprs, num_partitions: int,
             if r.dictionary is not None:
                 hashes = r.dictionary.stable_hashes()
                 if len(hashes) == 0:  # no value to hash: every code is dead
-                    hashes = [0]
-                table = torch.as_tensor(hashes, dtype=torch.int64,
-                                        device=dev)
+                    hashes = np.zeros(1, np.int64)
+                table = device_constant(hashes, dev)
                 # JAX's take(mode="clip")
                 v = table[v.to(torch.int64).clamp(0, table.shape[0] - 1)]
             h = splitmix64(h ^ splitmix64(v.to(torch.int64)))
@@ -72,6 +78,9 @@ class ScanExec(PhysicalPlan):
     def output_partitioning(self) -> Partitioning:
         return Partitioning("unknown", self.source.num_partitions())
 
+    def with_new_children(self, children):
+        return self
+
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         yield from self.source.scan(partition, self.projection)
 
@@ -91,8 +100,14 @@ class FilterExec(PipelineOp):
         self.child = child
         self._ev = Evaluator(child.output_schema())
 
+    def _signature_parts(self) -> tuple:
+        return (fingerprint(self.predicate), self.child.output_schema())
+
     def output_schema(self) -> Schema:
         return self.child.output_schema()
+
+    def with_new_children(self, children):
+        return FilterExec(self.predicate, children[0])
 
     def device_transform(self, batch: ColumnBatch) -> ColumnBatch:
         mask = self._ev.evaluate_predicate(self.predicate, batch)
@@ -111,8 +126,14 @@ class ProjectionExec(PipelineOp):
         self._ev = Evaluator(self._in_schema)
         self._schema = Schema([e.to_field(self._in_schema) for e in self.exprs])
 
+    def _signature_parts(self) -> tuple:
+        return (fingerprint(self.exprs), self._in_schema)
+
     def output_schema(self) -> Schema:
         return self._schema
+
+    def with_new_children(self, children):
+        return ProjectionExec(self.exprs, children[0])
 
     def device_transform(self, batch: ColumnBatch) -> ColumnBatch:
         cols = [self._ev.to_column(e, batch) for e in self.exprs]
@@ -139,6 +160,9 @@ class MergeExec(PhysicalPlan):
     def children(self):
         return [self.child]
 
+    def with_new_children(self, children):
+        return MergeExec(children[0])
+
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         if partition != 0:
             raise ExecutionError("MergeExec has a single output partition")
@@ -161,6 +185,9 @@ class CoalesceBatchesExec(PhysicalPlan):
     def children(self):
         return [self.child]
 
+    def with_new_children(self, children):
+        return CoalesceBatchesExec(children[0])
+
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         batches = list(self.child.execute(partition))
         if not batches:
@@ -179,6 +206,9 @@ class SortExec(PhysicalPlan):
         self.child = child
         self._ev = Evaluator(child.output_schema())
 
+    def _signature_parts(self) -> tuple:
+        return (fingerprint(self.sort_exprs), self.child.output_schema())
+
     def output_schema(self) -> Schema:
         return self.child.output_schema()
 
@@ -188,19 +218,31 @@ class SortExec(PhysicalPlan):
     def children(self):
         return [self.child]
 
+    def with_new_children(self, children):
+        return SortExec(self.sort_exprs, children[0])
+
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         batches = list(self.child.execute(partition))
         if not batches:
             return
-        b = concat_batches(self.output_schema(), batches)
-        keys = []
-        for se in self.sort_exprs:
-            r = self._ev.evaluate(se.expr, b)
-            keys.append((torch.broadcast_to(r.values, (b.capacity,)),
-                         se.ascending))
-        perm = sort_permutation(keys, b.selection)
-        live_sorted = b.selection[perm.to(torch.int64)]
-        yield take_batch(b, perm, live_sorted)
+        batch = concat_batches(self.output_schema(), batches)
+
+        def build():
+            tw = self.trace_twin()  # don't pin the child subtree
+
+            def do_sort(b: ColumnBatch) -> ColumnBatch:
+                keys = []
+                for se in tw.sort_exprs:
+                    r = tw._ev.evaluate(se.expr, b)
+                    keys.append((torch.broadcast_to(r.values, (b.capacity,)),
+                                 se.ascending))
+                perm = sort_permutation(keys, b.selection)
+                live_sorted = b.selection[perm.to(torch.int64)]
+                return take_batch(b, perm, live_sorted)
+
+            return do_sort
+
+        yield self.governed_jit(("sort.run",), build)(batch)
 
     def display(self) -> str:
         return f"SortExec: {', '.join(e.name() for e in self.sort_exprs)}"
@@ -216,17 +258,33 @@ class LimitExec(PhysicalPlan):
     def output_schema(self) -> Schema:
         return self.child.output_schema()
 
+    def _signature_parts(self) -> tuple:
+        return ()  # take_first is operator-independent (k is an argument)
+
     def children(self):
         return [self.child]
 
+    def with_new_children(self, children):
+        return LimitExec(self.n, children[0])
+
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         remaining = self.n
+
+        def build():
+            def take_first(b: ColumnBatch, k) -> ColumnBatch:
+                rank = torch.cumsum(b.selection.to(torch.int32), 0) - 1
+                return b.with_selection(
+                    torch.logical_and(b.selection, rank < k))
+
+            return take_first
+
+        take = self.governed_jit(("limit.take",), build)
         for batch in self.child.execute(partition):
             if remaining <= 0:
                 break
-            rank = torch.cumsum(batch.selection.to(torch.int32), 0) - 1
-            out = batch.with_selection(
-                torch.logical_and(batch.selection, rank < remaining))
+            k = torch.full((), remaining, dtype=torch.int32,
+                           device=batch.device)
+            out = take(batch, k)
             remaining -= out.num_rows_host()
             yield out
 
@@ -249,6 +307,18 @@ class RepartitionExec(PhysicalPlan):
         self.hash_exprs = hash_exprs
         self._ev = Evaluator(child.output_schema())
         self._parts = None
+
+    def _signature_parts(self) -> tuple:
+        return (self.num_partitions, fingerprint(self.hash_exprs),
+                self.child.output_schema())
+
+    def _detach(self) -> None:
+        super()._detach()
+        self._parts = None  # materialized batches must not be pinned
+
+    def with_new_children(self, children):
+        return RepartitionExec(children[0], self.num_partitions,
+                               self.hash_exprs)
 
     def output_schema(self) -> Schema:
         return self.child.output_schema()
@@ -275,15 +345,34 @@ class RepartitionExec(PhysicalPlan):
         permutation that orders its live rows by destination partition
         (dead rows last), and its rows per partition."""
         if self._parts is None:
-            n_out = self.num_partitions
+
+            def build():
+                tw = self.trace_twin()  # don't pin materialized batches
+                n_out = tw.num_partitions
+
+                def sort_by_pid(b: ColumnBatch, offset):
+                    pids = tw.partition_ids(b, offset)
+                    d = torch.where(b.selection, pids, n_out)  # dead last
+                    perm = torch.argsort(d, stable=True)
+                    # a histogram by scatter: bincount reads its input's
+                    # maximum back to the host on a card
+                    counts = torch.zeros((n_out + 1,), dtype=torch.int64,
+                                         device=b.device)
+                    counts.index_add_(0, d.to(torch.int64),
+                                      torch.ones_like(d, dtype=torch.int64))
+                    return perm, counts[:n_out]
+
+                return sort_by_pid
+
+            sort_fn = self.governed_jit(("repart.sort_by_pid",), build)
             parts = []
             offset = 0
             for p in range(self.child.output_partitioning().num_partitions):
                 for batch in self.child.execute(p):
-                    pids = self.partition_ids(batch, offset)
-                    d = torch.where(batch.selection, pids, n_out)
-                    perm = torch.argsort(d, stable=True)
-                    counts = torch.bincount(d, minlength=n_out + 1)[:n_out]
+                    off = torch.full((), offset, dtype=torch.int32,
+                                     device=batch.device)
+                    perm, counts = sort_fn(batch, off)
+                    # the count fetch, between programs
                     parts.append((batch, perm, counts.cpu().numpy()))
                     offset += batch.num_rows_host()
             self._parts = parts
@@ -303,9 +392,18 @@ class RepartitionExec(PhysicalPlan):
             idx = perm[start:start + cap]
             if idx.shape[0] < cap:  # tail partition: pad the gather
                 idx = torch.cat([idx, idx.new_zeros(cap - idx.shape[0])])
-            live = torch.arange(cap, dtype=torch.int32,
-                                device=batch.device) < n
-            pieces.append(take_batch(batch, idx, live))
+
+            def build(_cap=cap):
+                def take_front(b, idx, n):
+                    live = torch.arange(_cap, dtype=torch.int32,
+                                        device=b.device) < n
+                    return take_batch(b, idx, live)
+
+                return take_front
+
+            take = self.governed_jit(("repart.take", cap), build)
+            pieces.append(take(batch, idx, torch.full(
+                (), n, dtype=torch.int32, device=batch.device)))
         if len(pieces) == 1:
             yield pieces[0]
         elif pieces:
@@ -329,6 +427,9 @@ class EmptyExec(PhysicalPlan):
 
     def output_schema(self) -> Schema:
         return Schema([])
+
+    def with_new_children(self, children):
+        return self
 
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         n = 1 if self.produce_one_row else 0

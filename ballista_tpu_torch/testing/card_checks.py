@@ -7,13 +7,16 @@ non-zero exit:
 1. ptxas's report (``nvcc -Xptxas -v``) on ``csrc/dense_grouped_sums.cu``,
    built with the flags the port builds it with: each instantiation's
    registers, and no stack frame and no spills;
-2. the card-only tests of ``tests/test_torch_dense_sums.py`` (its
-   ``test_cuda_*`` functions) under pytest, which must all pass: a skip
-   fails here. That file also holds the comparisons with the JAX package
-   and imports jax and the JAX package at its top, which a card's machine
-   need not have and the card-only tests never call; empty modules stand
-   in for those names, and ``tests/conftest.py``, which sets jax up, is
-   not loaded.
+2. the card-only tests of ``tests/test_torch_dense_sums.py`` and
+   ``tests/test_torch_compile_governor.py`` (their ``test_cuda_*``
+   functions: the kernel against its plain version, and governed
+   programs captured as CUDA graphs — outputs that survive later
+   replays, the kernel counted and observed on every replay) under
+   pytest, which must all pass: a skip fails here. Those files also hold
+   the comparisons with the JAX package and import jax and the JAX
+   package at their top, which a card's machine need not have and the
+   card-only tests never call; empty modules stand in for those names,
+   and ``tests/conftest.py``, which sets jax up, is not loaded.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import types
 
 from ..native_build import BUILD_DIR, NVCC_FLAGS, PACKAGE_DIR, find_nvcc
 
-TEST_FILE = os.path.join("tests", "test_torch_dense_sums.py")
+TEST_FILES = [os.path.join("tests", "test_torch_dense_sums.py"),
+              os.path.join("tests", "test_torch_compile_governor.py")]
 STAND_INS = ("jax", "jax.numpy", "ballista_tpu", "ballista_tpu.kernels",
              "ballista_tpu.kernels.aggregate",
              "ballista_tpu.kernels.pallas_agg")
@@ -79,8 +83,9 @@ def card_tests() -> None:
             setattr(sys.modules[parent], child, sys.modules[name])
     sys.modules["ballista_tpu.kernels.pallas_agg"].dense_grouped_sums = None
     outcomes = _Outcomes()
-    rc = pytest.main([TEST_FILE, "--noconftest", "-p", "no:cacheprovider",
-                      "-q", "-k", "test_cuda_"], plugins=[outcomes])
+    rc = pytest.main(TEST_FILES + ["--noconftest", "-p", "no:cacheprovider",
+                                   "-q", "-k", "test_cuda_"],
+                     plugins=[outcomes])
     for nodeid, outcome in sorted(outcomes.seen.items()):
         print(f"# {outcome}: {nodeid}", flush=True)
     if rc != 0 or not outcomes.seen or any(

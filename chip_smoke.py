@@ -27,34 +27,51 @@ non-zero exit):
    call that finds the first rows: each call by its own CUDA events after
    a 256 MB write has flushed the L2 cache, the host's launch hidden
    behind a sleep on the card (``ms``) or not (``call_ms``);
-4. TPC-H q1 and q6 through ``BallistaContext.standalone()`` on "cuda":
-   the kernel's launch count is reset just before and read just after
-   each q1 collect (>= 2 launches: partial and final aggregate); the
-   kernel is held against its plain version on the inputs of every call
-   q1's cold collect made (partial and final aggregate), the partial's
-   timed, and again on a misaligned copy of the partial's inputs (the
-   VEC = 1 instantiation, timed as ``vec1_ms``); results must equal the
-   port on the CPU and an integer numpy group-by of the scanned columns,
-   exactly;
+4. TPC-H q1 and q6 through ``BallistaContext.standalone()`` on "cuda",
+   fused (the default) and run as captured CUDA graphs: the kernel's
+   launch count is reset just before and read just after each q1
+   collect (>= 2 launches: partial and final aggregate; a warm collect's
+   launches are replays of the captured ones); every kernel call of
+   every collect, the replayed ones included, is observed and its
+   outputs held against the plain version on its inputs, bit for bit;
+   the kernel is launched again on the inputs of every call q1's cold
+   collect made, the partial's timed, on a misaligned copy of the
+   partial's inputs (the VEC = 1 instantiation, ``vec1_ms``), and
+   replayed inside a graph that holds only it (``graph_ms``,
+   ``graph_call_ms``); results must equal the port on the CPU and an
+   integer numpy group-by of the scanned columns, exactly;
 5. TPC-H q3 and q5 at SF1 over all eight tables, cold and warm: each
    physical plan is printed; q3's must hold a co-partitioned
    ``JoinExec`` over two ``RepartitionExec``s; the kernel's launch count
-   is reset just before and read just after each q5 collect (>= 2), and
-   the kernel is held against its plain version on the inputs of every
-   call of q5's cold collect (the largest timed); results must equal the
-   port on the CPU and a numpy implementation of each query over the
-   scanned columns (sorted-key joins, int64 decimals), exactly;
-6. hash partition ids on the card: ``hash_partition_ids`` on full-range
+   is reset just before and read just after each q5 collect (>= 2), every
+   observed call is held against the plain version, and the kernel is
+   launched again on the inputs of every call of q5's cold collect (the
+   largest timed); results must equal the port on the CPU and a numpy
+   implementation of each query over the scanned columns (sorted-key
+   joins, int64 decimals), exactly;
+6. fusion: q1, q3, q5 and q16 at SF1 with fusion on and with
+   ``BALLISTA_FUSION=0``, each from a cleared governor, cold and warm:
+   results equal to the port on the CPU, exactly; the warm collect must
+   replay graphs and capture none; q1's and q5's warm collects must count
+   kernel launches (replays); every observed kernel call bit-equal to the
+   plain version; fused nodes present only with fusion on (q16's one
+   ``FusedDistinctCountExec``); captures, replays, capture seconds and
+   peak memory of each, and one profiled warm collect (wall, card-busy
+   share, kernels on the card, host-side launches by kind);
+7. hash partition ids on the card: ``hash_partition_ids`` on full-range
    int64 keys and on SF1 ``l_orderkey``, and ``compute_partition_ids`` on
    ``l_orderkey``, on the utf8 ``l_shipmode`` and on both, for P = 8 and
    P = 7, each equal to the ids the CPU computes, bit for bit;
-7. all 22 TPC-H queries at SF0.05 (two files a table, in
-   ``bench_data/sf0.05``) on the card and through the port on the CPU:
-   integer, decimal, date and string columns equal exactly, float
-   columns within rtol 1e-6;
-8. the kernel list, as one JSON line; its times, replicas and VEC are
-   those on q1's main-path inputs, with q5's launches and times beside
-   them.
+8. all 22 TPC-H queries at SF0.05 (two files a table, in
+   ``bench_data/sf0.05``), fused, on the card and through the port on
+   the CPU: integer, decimal, date and string columns equal exactly,
+   float columns within rtol 1e-6;
+9. in a process of its own, a governed program that cannot be captured
+   (it reads a device value on the host) must raise ``CaptureError``
+   rather than run eagerly;
+10. the kernel list, as one JSON line; its times, replicas and VEC are
+    those on q1's main-path inputs, with q5's launches and times beside
+    them.
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -385,26 +402,81 @@ def phase_kernel_check(rows: int):
 # -- phase 4 ----------------------------------------------------------------
 
 
-class KernelInputSpy:
-    """Records the inputs the main path hands ``dense_grouped_sums``, call
-    by call, to hold the kernel against its plain version on exactly those
-    afterwards. Counts nothing."""
+class KernelCallLog:
+    """Keeps a copy of the inputs and outputs of every executed call of
+    ``dense_grouped_sums`` while it is entered — eager calls, and the
+    calls replayed inside a captured CUDA graph, whose tensors are the
+    graph's static buffers (``dense_sums.observe``) — to hold each call's
+    outputs against the plain version on its inputs afterwards. Counts
+    nothing and launches nothing."""
 
-    def __init__(self, module):
-        self.module = module
-        self.real = module.dense_grouped_sums
+    def __init__(self):
         self.calls = []
 
-    def __enter__(self):
-        def spy(gids, live, values, num_groups):
-            self.calls.append((gids, live, list(values), num_groups))
-            return self.real(gids, live, values, num_groups)
+    def __call__(self, gids, live, values, num_groups, sums, counts, first):
+        self.calls.append((gids.clone(), live.clone(),
+                           [v.clone() for v in values], num_groups,
+                           [t.clone() for t in sums], counts.clone(),
+                           first.clone()))
 
-        self.module.dense_grouped_sums = spy
+    def __enter__(self):
+        from ballista_tpu_torch.kernels import dense_sums as ds
+
+        self._observing = ds.observe(self)
+        self._observing.__enter__()
         return self
 
     def __exit__(self, *exc):
-        self.module.dense_grouped_sums = self.real
+        return self._observing.__exit__(*exc)
+
+    def inputs(self, i: int):
+        gids, live, values, g = self.calls[i][:4]
+        return gids, live, values, g
+
+
+def check_observed(calls, label: str) -> None:
+    """Each observed call's sums, counts and first rows against the plain
+    version on that call's inputs, bit for bit."""
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    for i, (gids, live, values, g, sums, counts, first) in enumerate(calls):
+        ref_sums, ref_counts, ref_first = ds.dense_grouped_sums_reference(
+            gids, live, values, g)
+        got = torch.stack(sums + [counts, first])
+        want = torch.stack(ref_sums + [ref_counts, ref_first])
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(
+                f"{label}: observed call {i + 1} of {len(calls)} differs "
+                f"from the plain version in {bad} of {got.numel()} results")
+    log(f"# {label}: all {len(calls)} observed kernel calls bit-equal to "
+        f"the plain version")
+
+
+def graph_replay_ms(gids, live, values, g):
+    """(device ms, ms with the host's launch) of one replay of a CUDA
+    graph that holds only the kernel's call on these inputs — the
+    launch a governed program pays for the kernel, against ``call_ms``'s
+    Python wrapper. Captured through the governor (so the capture counts
+    nothing); the replays are timed on the graph itself, outside every
+    counted window."""
+    from ballista_tpu_torch.compile import governed
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    gf = governed(("agg.grouped", "chip_smoke.kernel_only"),
+                  lambda: ds.dense_grouped_sums)
+    gf(gids, live, values, g)  # warm-up and capture
+    prog = next(iter(gf.programs.values()))
+    ref = ds.dense_grouped_sums_reference(gids, live, values, g)
+    prog.graph.replay()
+    torch.cuda.synchronize()
+    got = torch.stack([t for t in prog.static_out])
+    want = torch.stack(ref[0] + [ref[1], ref[2]])
+    if not torch.equal(got, want):
+        raise AssertionError("the kernel replayed in its graph differs "
+                             "from the plain version")
+    return cuda_ms(prog.graph.replay), cuda_ms(prog.graph.replay,
+                                                 hold=False)
 
 
 def misaligned_copy(t: torch.Tensor) -> torch.Tensor:
@@ -494,7 +566,6 @@ def assert_equal_results(name: str, got, want) -> None:
 
 def phase_queries(data_dir: str):
     from ballista_tpu_torch.client import BallistaContext
-    from ballista_tpu_torch.kernels import aggregate as agg_mod
     from ballista_tpu_torch.kernels import dense_sums as ds
     from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
@@ -508,7 +579,7 @@ def phase_queries(data_dir: str):
     for q in ("q1", "q6"):
         for run in ("cold", "warm"):
             df = ctx.sql(sqls[q])
-            with KernelInputSpy(agg_mod) as spy:
+            with KernelCallLog() as spy:
                 torch.cuda.synchronize()
                 ds.launch_count = 0
                 t0 = time.perf_counter()
@@ -518,8 +589,10 @@ def phase_queries(data_dir: str):
                 n_launch = ds.launch_count
             spy_shapes += [(int(c[0].shape[0]), len(c[2]), c[3])
                            for c in spy.calls]
+            # every call, the warm collect's graph replays included
+            check_observed(spy.calls, f"{q} {run}")
             if q == "q1" and run == "cold":
-                main_calls = spy.calls
+                main_calls = [spy.inputs(i) for i in range(len(spy.calls))]
             if q == "q1":
                 launches.append(n_launch)
                 if n_launch < 2:
@@ -552,6 +625,14 @@ def phase_queries(data_dir: str):
                         "q1 main-path call 1, misaligned copy", timed=True,
                         vec=1)
     main_path["vec1_ms"] = vec1["ms"]
+    # the same call replayed inside a CUDA graph that holds only it
+    main_path["graph_ms"], main_path["graph_call_ms"] = graph_replay_ms(
+        gids, live, values, g)
+    log(f"# q1 main-path call 1 replayed in its own graph: "
+        f"{main_path['graph_ms']:.4f} ms on the card, "
+        f"{main_path['graph_call_ms']:.4f} ms with the host's launch "
+        f"(launched directly: {main_path['ms']:.4f} / "
+        f"{main_path['call_ms']:.4f} ms)")
     del main_calls, gids, live, values, off
 
     # the same queries through the port on the CPU
@@ -676,7 +757,6 @@ def phase_joins(data_dir: str):
     """q3 and q5 at SF1: plans, launch counts, the kernel on every q5
     call, results against the port on the CPU and numpy."""
     from ballista_tpu_torch.client import BallistaContext
-    from ballista_tpu_torch.kernels import aggregate as agg_mod
     from ballista_tpu_torch.kernels import dense_sums as ds
     from ballista_tpu_torch.physical.join import JoinExec
     from ballista_tpu_torch.physical.operators import RepartitionExec
@@ -688,7 +768,7 @@ def phase_joins(data_dir: str):
     for q in ("q3", "q5"):
         df = ctx.sql(open(os.path.join(QUERY_DIR, f"{q}.sql")).read())
         for run in ("cold", "warm"):
-            with KernelInputSpy(agg_mod) as spy:
+            with KernelCallLog() as spy:
                 torch.cuda.synchronize()
                 ds.launch_count = 0
                 t0 = time.perf_counter()
@@ -696,6 +776,7 @@ def phase_joins(data_dir: str):
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
                 n_launch = ds.launch_count
+            check_observed(spy.calls, f"{q} {run}")
             if q == "q5":
                 q5_launches.append(n_launch)
                 if n_launch < 2:
@@ -703,7 +784,7 @@ def phase_joins(data_dir: str):
                         f"q5 {run}: dense_grouped_sums launched {n_launch} "
                         f"times, expected >= 2 (partial + final)")
                 if run == "cold":
-                    q5_calls = spy.calls
+                    q5_calls = [spy.inputs(i) for i in range(len(spy.calls))]
             timings[f"{q}_{run}_s"] = secs
             log(f"# {q} {run}: {secs:.4f} s, dense_grouped_sums launches "
                 f"{n_launch}")
@@ -754,6 +835,148 @@ def phase_joins(data_dir: str):
 
 
 # -- phase 6 ----------------------------------------------------------------
+
+FUSION_QUERIES = ("q1", "q3", "q5", "q16")
+
+
+def count_nodes(plan, names) -> int:
+    n = int(type(plan).__name__ in names
+            or bool(getattr(plan, "probe_chain", ())))
+    return n + sum(count_nodes(c, names) for c in plan.children())
+
+
+def profile_warm(df):
+    """One more warm collect of ``df`` under ``torch.profiler``: (wall s,
+    device-busy ms, kernels the card ran, host-side launches by kind)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        df.to_pydict()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, kernels, host = 0.0, 0, {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.self_device_time_total > 0:
+                busy += e.self_device_time_total / 1e3
+                if not e.key.startswith(("Memcpy", "Memset")):
+                    kernels += e.count
+        elif e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                       "cuLaunchKernel", "cudaGraphLaunch",
+                       "cudaMemcpyAsync", "cudaMemsetAsync"):
+            host[e.key] = host.get(e.key, 0) + e.count
+    return wall, busy, kernels, host
+
+
+def phase_fusion(data_dir: str):
+    """q1, q3, q5 and q16 at SF1 with fusion on and with
+    ``BALLISTA_FUSION=0``, each from a cleared governor: cold and warm
+    collects (the warm one must replay graphs and capture none), results
+    against the port on the CPU, every kernel call observed and held
+    against the plain version, captures, replays and peak memory, and a
+    profiled warm collect."""
+    import gc
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import compile_stats, governor
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    sqls = {q: open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            for q in FUSION_QUERIES}
+    cpu = BallistaContext.standalone(device="cpu")
+    register_tpch(cpu, data_dir)
+    want = {q: cpu.sql(sqls[q]).to_pydict() for q in FUSION_QUERIES}
+    fused_names = ("FusedStageExec", "FusedDistinctCountExec")
+    rows = []
+    for setting in ("on", "0"):
+        os.environ["BALLISTA_FUSION"] = setting
+        try:
+            for q in FUSION_QUERIES:
+                governor().clear()
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                ctx = BallistaContext.standalone()
+                register_tpch(ctx, data_dir)
+                df = ctx.sql(sqls[q])
+                row = {"query": q, "fusion": setting}
+                with KernelCallLog() as spy:
+                    for run in ("cold", "warm"):
+                        st0 = compile_stats()
+                        ds.launch_count = 0
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        out = df.to_pydict()
+                        torch.cuda.synchronize()
+                        row[f"{run}_s"] = time.perf_counter() - t0
+                        st1 = compile_stats()
+                        row[f"{run}_captures"] = (st1["graph_captures"]
+                                                  - st0["graph_captures"])
+                        row[f"{run}_replays"] = (st1["graph_replays"]
+                                                 - st0["graph_replays"])
+                        row[f"{run}_capture_s"] = (st1["capture_seconds"]
+                                                   - st0["capture_seconds"])
+                        row[f"{run}_kernel_launches"] = ds.launch_count
+                        # these four hold no float-computed column:
+                        # every column must match exactly
+                        assert_equal_results(
+                            f"{q} fusion={setting} {run} cuda vs cpu", out,
+                            want[q])
+                check_observed(spy.calls, f"{q} fusion={setting}")
+                row["observed_kernel_calls"] = len(spy.calls)
+                del spy
+                row["peak_mb"] = (torch.cuda.max_memory_allocated()
+                                  - base) / 2 ** 20
+                if row["warm_captures"] or not row["warm_replays"]:
+                    raise AssertionError(
+                        f"{q} fusion={setting}: the warm collect captured "
+                        f"{row['warm_captures']} graphs and replayed "
+                        f"{row['warm_replays']}; it must replay only")
+                if q in ("q1", "q5") and not row["warm_kernel_launches"]:
+                    raise AssertionError(
+                        f"{q} fusion={setting}: no dense_grouped_sums "
+                        f"launch counted in the warm collect's replays")
+                fused = count_nodes(df.physical_plan(), fused_names)
+                if (fused > 0) != (setting == "on"):
+                    raise AssertionError(
+                        f"{q} fusion={setting}: {fused} fused nodes")
+                if q == "q16" and setting == "on" and count_nodes(
+                        df.physical_plan(), ("FusedDistinctCountExec",)) != 1:
+                    raise AssertionError("q16 plans no FusedDistinctCountExec")
+                row["fused_nodes"] = fused
+                (row["profiled_wall_s"], row["busy_ms"],
+                 row["device_kernels"], row["host_launches"]) = \
+                    profile_warm(df)
+                row["busy_share"] = row["busy_ms"] / (
+                    1e3 * row["profiled_wall_s"])
+                rows.append(row)
+                log(f"# fusion={setting} {q}: cold {row['cold_s']:.4f} s "
+                    f"({row['cold_captures']} captures, "
+                    f"{row['cold_capture_s']:.3f} s capturing), warm "
+                    f"{row['warm_s']:.4f} s ({row['warm_replays']} "
+                    f"replays), kernel launches cold/warm "
+                    f"{row['cold_kernel_launches']}/"
+                    f"{row['warm_kernel_launches']}, peak "
+                    f"{row['peak_mb']:.1f} MB over {base / 2 ** 20:.1f} MB; "
+                    f"profiled warm {row['profiled_wall_s'] * 1e3:.1f} ms, "
+                    f"card busy {row['busy_ms']:.1f} ms "
+                    f"({100 * row['busy_share']:.1f}%), "
+                    f"{row['device_kernels']} kernels on the card, host "
+                    f"launches {json.dumps(row['host_launches'])}; "
+                    f"{fused} fused nodes; == port on cpu")
+                del df, ctx
+        finally:
+            os.environ.pop("BALLISTA_FUSION", None)
+    governor().clear()
+    return rows
+
+
+# -- phase 7 ----------------------------------------------------------------
 
 
 def phase_hash_ids(data_dir: str) -> None:
@@ -810,7 +1033,7 @@ def phase_hash_ids(data_dir: str) -> None:
                 f"rows per partition {counts.tolist()}")
 
 
-# -- phase 7 ----------------------------------------------------------------
+# -- phase 8 ----------------------------------------------------------------
 
 
 def assert_close_results(name: str, got, want) -> None:
@@ -897,15 +1120,50 @@ def profile_query(data_dir: str, q: str) -> None:
 # -- main -------------------------------------------------------------------
 
 
+def capture_failure_check() -> None:
+    """A governed program that reads a device value back to the host
+    cannot be captured: the governor must raise ``CaptureError`` and not
+    run the program eagerly instead."""
+    from ballista_tpu_torch.compile import governed
+    from ballista_tpu_torch.compile.governor import CaptureError
+
+    fn = governed(("sort.run", "chip_smoke.capture_failure"),
+                  lambda: (lambda x: x[: int(x.sum())]))
+    try:
+        fn(torch.arange(4, device="cuda"))
+    except CaptureError as e:
+        log(f"# capture failure raised CaptureError: {str(e)[:160]}")
+        return
+    raise AssertionError("a program that cannot be captured ran eagerly")
+
+
+def phase_capture_failure() -> None:
+    """``capture_failure_check`` in a process of its own, so that the
+    failed capture leaves nothing behind in this one."""
+    proc = subprocess.run([sys.executable, __file__,
+                           "--capture-failure-check"],
+                          capture_output=True, text=True, timeout=300)
+    for line in proc.stdout.splitlines():
+        log(line)
+    if proc.returncode != 0:
+        raise AssertionError(f"capture-failure check failed "
+                             f"({proc.returncode}):\n{proc.stderr[-2000:]}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm collect of q1, q3 and q5")
+    ap.add_argument("--capture-failure-check", action="store_true",
+                    help="only check that a capture failure raises")
     args = ap.parse_args()
     card_id = use_one_card()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    if args.capture_failure_check:
+        capture_failure_check()
+        return 0
     t_start = time.perf_counter()
     card = phase_card(card_id)
     phase_build()
@@ -920,12 +1178,15 @@ def main() -> int:
     join_timings, q5_launches, q5_main, q5_shapes = phase_joins(data_dir)
     timings.update(join_timings)
     log(f"# q5 kernel shapes (N, K, G): {q5_shapes}")
+    fusion_rows = phase_fusion(data_dir)
     phase_hash_ids(data_dir)
     small_secs = phase_all_queries(small_dir)
+    phase_capture_failure()
     if args.profile:
         for q in ("q1", "q3", "q5"):
             profile_query(data_dir, q)
     log(f"# timings: {json.dumps(timings)}")
+    log(f"# fusion: {json.dumps(fusion_rows)}")
     log(f"# sf{SMALL_SCALE:g} seconds on the card: {json.dumps(small_secs)}")
     kernels = [{
         "name": "dense_grouped_sums",
@@ -948,6 +1209,8 @@ def main() -> int:
                   "g": main_path["g"]},
         "even_groups_ms": q1_shape["ms"],
         "vec1_ms": main_path["vec1_ms"],
+        "graph_ms": main_path["graph_ms"],
+        "graph_call_ms": main_path["graph_call_ms"],
         "q5_launches": q5_launches[0],
         "q5_ms": q5_main["ms"],
         "q5_call_ms": q5_main["call_ms"],
