@@ -1,0 +1,81 @@
+"""Warm-path cache subsystem: three tiers, ONE invalidation signal.
+
+The port of the JAX package's ``cache`` package.
+
+- :mod:`.residency` — tier (a): device-resident table cache pinning
+  hot scan outputs (post-parse, post-H2D) across queries and sessions,
+  LRU-bounded by a device-memory governor (charge on insert, refuse
+  past watermark, evict coldest, never block).
+- :mod:`.donation` — tier (b): buffer donation through governed
+  programs. Single-consumer intermediate batches are marked transient
+  at creation and give up their tensors to the governed program that
+  consumes them; cached/pinned batches are never eligible.
+- :mod:`.results` — tier (c): plan-fingerprint -> result cache keyed
+  on the plan's ``compile_signature``s + input table content signatures
+  + semantics-affecting settings. Opt-in (``BALLISTA_RESULT_CACHE=on``).
+
+The shared invalidation signal is the file signature: every key embeds
+``(basename, size, mtime_ns)`` file stats taken at lookup time plus
+plan fingerprints, so changed data or changed plans miss by
+construction — there is no explicit invalidation bus to keep coherent.
+
+``cache_counters()`` is the one-stop snapshot of all three tiers.
+"""
+
+from __future__ import annotations
+
+from .donation import (  # noqa: F401
+    consume_transient,
+    donation_enabled,
+    donation_stats,
+    is_transient,
+    mark_transient,
+    record_donation,
+    reset_donation_stats,
+)
+from .residency import (  # noqa: F401
+    DeviceMemoryGovernor,
+    DeviceTableCache,
+    batch_device_bytes,
+    process_table_cache,
+    scan_key,
+    serve_or_fill,
+    table_cache_budget_bytes,
+    table_cache_enabled,
+    table_cache_watermark,
+)
+from .results import (  # noqa: F401
+    ResultCache,
+    plan_key,
+    process_result_cache,
+    result_cache_budget_bytes,
+    result_cache_enabled,
+)
+
+
+def cache_counters() -> dict:
+    """Flat counter snapshot across all three tiers."""
+    t = process_table_cache().stats()
+    r = process_result_cache().stats()
+    d = donation_stats()
+    return {
+        "table_cache_hits": t["hits"],
+        "table_cache_misses": t["misses"],
+        "table_cache_fills": t["fills"],
+        "table_cache_evictions": t["evictions"],
+        "table_cache_resident_bytes": t["resident_bytes"],
+        "table_cache_peak_resident_bytes": t["peak_resident_bytes"],
+        "result_cache_hits": r["hits"],
+        "result_cache_misses": r["misses"],
+        "result_cache_bytes": r["bytes"],
+        "donated_buffers": d["donated_buffers"],
+        "donated_bytes": d["donated_bytes"],
+    }
+
+
+def reset_cache_stats() -> None:
+    """Re-baseline every tier's cumulative counters (phases of a run,
+    tests). Resident entries and their accounting stay."""
+    process_table_cache().reset_stats()
+    process_result_cache().reset_stats()
+    reset_donation_stats()

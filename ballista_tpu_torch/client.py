@@ -4,12 +4,21 @@ The port of the standalone half of the JAX package's ``client.py``: plans
 and executes in-process on one device. The context's device defaults to
 ``"cuda"`` and is explicit everywhere below it — sources create their
 batches there, and no code path moves to another device on its own.
-Remote (cluster) mode, cancellation, profiling, the plan-level caches and
-the latency ledger are not ported yet.
+
+A collect runs as the JAX package's standalone collect does: fusion,
+the opt-in result cache, every scan primed on the ingest pool before the
+first pull (``ingest.prime_plan``; scans serve from the device table
+cache when they can), one cancel token bound around it
+(``ctx.cancel()`` from another thread), and ``cancel_plan`` in a
+``finally``. Remote (cluster) mode, the standalone adaptive pass,
+prewarming, profiling, EXPLAIN and the latency ledger are not ported
+yet.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -65,6 +74,13 @@ class BallistaContext:
         # SQL plan cache: repeated identical queries reuse the planned
         # DataFrame (and its physical plan); cleared on catalog change
         self._plan_cache: Dict[str, "DataFrame"] = {}
+        # in-flight collects' cancel tokens (ctx.cancel reaches them)
+        self._lifecycle_lock = threading.Lock()
+        self._active_tokens: List = []
+        # warm-path attribution of this context's collects: scan
+        # partitions served by the table cache, results served by the
+        # result cache
+        self.cache_hits = {"table": 0, "result": 0}
 
     # -- constructors -------------------------------------------------------
 
@@ -172,11 +188,45 @@ class BallistaContext:
 
         return PlannerOptions.from_settings(self.settings, self.device)
 
+    @contextmanager
+    def _track_lifecycle(self, token):
+        """Register an in-flight collect's cancel token for the duration
+        of the collect, so a concurrent ``ctx.cancel()`` can reach it."""
+        with self._lifecycle_lock:
+            self._active_tokens.append(token)
+        try:
+            yield token
+        finally:
+            with self._lifecycle_lock:
+                self._active_tokens.remove(token)
+
+    def cancel(self, reason: str = "client") -> int:
+        """Cooperatively cancel this context's in-flight collects (call
+        from another thread). Each stops at its next batch boundary and
+        raises :class:`errors.QueryCancelled`; its scan producers stop at
+        their next chunk. Returns how many collects this call
+        cancelled."""
+        with self._lifecycle_lock:
+            tokens = list(self._active_tokens)
+        return sum(bool(t.cancel(reason)) for t in tokens)
+
     def _collect(self, plan: LogicalPlan, phys=None):
         """Plan (unless the caller passes a cached physical plan) and
-        execute; returns ``(dict of numpy arrays, phys)``."""
-        from .execution import collect_physical, plan_logical
+        execute; returns ``(dict of numpy arrays, phys)``. One cancel
+        token per collect: ``cancel()`` fires it from another thread,
+        the slow-query killer on timeout, and every batch boundary under
+        the bind checks it."""
+        from .lifecycle import CancelToken, bind_token, slow_query_killer
 
+        token = CancelToken()
+        with self._track_lifecycle(token), bind_token(token), \
+                slow_query_killer(token):
+            return self._collect_governed(plan, phys)
+
+    def _collect_governed(self, plan: LogicalPlan, phys=None):
+        from .cache import results as _results
+        from .execution import collect_physical, plan_logical
+        from .ingest import cancel_plan, prime_plan
         from .physical.fusion import maybe_fuse
 
         if phys is None:
@@ -184,14 +234,48 @@ class BallistaContext:
         # whole-stage fusion: each pipeline stage becomes one governed
         # program (a no-op on a kept plan, which is fused already)
         phys = maybe_fuse(phys)
+        # plan-fingerprint result cache (cache/results.py, opt-in): a
+        # repeat of the same fused plan over unchanged files with the
+        # same settings on the same device returns the stored result
+        # without executing
+        rc_key = None
+        if _results.result_cache_enabled(self.settings):
+            rc_key = _results.plan_key(phys, self.settings, self.device)
+            cached = _results.process_result_cache().lookup(rc_key)
+            if cached is not None:
+                self._annotate_cache_hits(result_hit=True)
+                return cached, phys
         nodes = _plan_nodes(phys)
         for node in nodes:  # report THIS run's metrics
             node.metrics().reset()
+        # parallel ingest: start parse+H2D of every leaf scan now, so
+        # independent tables overlap each other; whatever an early exit
+        # leaves unconsumed is cancelled, never leaked
+        prime_plan(phys)
         try:
-            return collect_physical(phys), phys
+            data = collect_physical(phys)
         finally:
+            cancel_plan(phys)
+            # join builds and repartitioned batches; scan batches the
+            # table cache pins stay with the cache
             for node in nodes:
                 node.release()
+        if rc_key is not None:
+            _results.process_result_cache().fill(rc_key, data)
+        self._annotate_cache_hits(phys)
+        return data, phys
+
+    def _annotate_cache_hits(self, phys=None, result_hit=False) -> None:
+        """Warm-path attribution of this context (``cache_hits``): the
+        plan's ScanExec ``table_cache_hits`` counters of THIS collect
+        (reset at its start) and/or a result-cache hit."""
+        hits = 0
+        if phys is not None:
+            for node in _plan_nodes(phys):
+                hits += int(node.metrics()._counters.get(
+                    "table_cache_hits", 0))
+        self.cache_hits["table"] += hits
+        self.cache_hits["result"] += int(result_hit)
 
 
 def _plan_nodes(plan) -> list:
@@ -285,6 +369,11 @@ class DataFrame:
         (column name -> logical values). Needs no pandas."""
         out, self._phys = self.ctx._collect(self.plan, phys=self._phys)
         return out
+
+    def cancel(self, reason: str = "client") -> int:
+        """Cancel the context's in-flight collects (this frame's
+        included) — see :meth:`BallistaContext.cancel`."""
+        return self.ctx.cancel(reason)
 
     def collect(self):
         """Execute and return a pandas DataFrame."""

@@ -13,10 +13,19 @@ a struct of arrays of *fixed capacity* tensors on one explicit device:
 
 Compaction (dropping dead rows) happens only at host boundaries (collect),
 where numpy boolean indexing is cheap.
+
+Uploads (``ColumnBatch.from_numpy`` on a card) stage each column in
+pinned host memory, from torch's caching host allocator, and copy it
+asynchronously: on the calling thread's current stream, or, inside
+``side_stream_uploads()`` (a scan's prefetch producer), on the thread's
+own upload stream, with an event the consumer's stream waits on before
+the batch's first use (``ColumnBatch.wait_upload``).
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -45,15 +54,71 @@ def round_capacity(n: int, minimum: int = 8) -> int:
     return cap
 
 
-def _upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> tensor on ``device``: a plain synchronous copy from
-    pageable memory. Pinning first would cost one more host copy of every
-    byte, and nothing in this engine overlaps the upload with other work
-    yet, so an asynchronous copy would buy nothing. (The JAX package's
-    narrow-wire transfer is a TPU-link optimisation and is not carried
-    over.) On the CPU the tensor shares the array's memory (read-only or
-    strided arrays are copied first)."""
-    return torch.from_numpy(np.require(arr, requirements=("C", "W"))).to(device)
+_tls = threading.local()
+
+
+@contextmanager
+def side_stream_uploads():
+    """Within the block, ``ColumnBatch.from_numpy`` on a card uploads on
+    this thread's own upload stream and records an event on it, which
+    the batch carries until a consumer waits on it (``wait_upload``).
+    Outside it, an upload runs on the thread's current stream, the
+    consumer's own, and needs no event."""
+    prev = getattr(_tls, "side", False)
+    _tls.side = True
+    try:
+        yield
+    finally:
+        _tls.side = prev
+
+
+def _upload_stream(device: torch.device) -> torch.cuda.Stream:
+    """This thread's upload stream on ``device`` (one per thread and
+    card, made at first use). Torch hands streams out round-robin from a
+    small pool per priority; upload streams take the high-priority pool,
+    so that no upload stream is ever the governor's side stream (default
+    priority), on which a concurrent capture would record the upload
+    into its graph instead of running it."""
+    streams = getattr(_tls, "streams", None)
+    if streams is None:
+        streams = _tls.streams = {}
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    st = streams.get(index)
+    if st is None:
+        st = streams[index] = torch.cuda.Stream(device=index, priority=-1)
+    return st
+
+
+_TORCH_DTYPES = {np.dtype(k): v for k, v in (
+    (np.bool_, torch.bool), (np.int8, torch.int8), (np.uint8, torch.uint8),
+    (np.int16, torch.int16), (np.int32, torch.int32),
+    (np.int64, torch.int64), (np.float32, torch.float32),
+    (np.float64, torch.float64))}
+
+
+def _upload(arr: np.ndarray, cap: int, device: torch.device) -> torch.Tensor:
+    """Host array -> tensor of ``cap`` rows on ``device`` (zero padding).
+
+    On the CPU the tensor shares the padded array's memory (``arr``'s own
+    when it is full, contiguous and writable). On a card the rows are
+    written once into a pinned staging buffer of ``cap`` rows from
+    torch's caching host allocator, which also pads, and copied with
+    ``non_blocking`` on the current stream; the allocator keeps the
+    staging block until that copy has run. A failed copy raises, as any
+    CUDA call does."""
+    n = arr.shape[0]
+    if device.type != "cuda":
+        if n < cap:
+            pad = np.zeros((cap - n,) + arr.shape[1:], dtype=arr.dtype)
+            arr = np.concatenate([arr, pad])
+        return torch.from_numpy(np.require(arr, requirements=("C", "W")))
+    host = torch.empty((cap,) + arr.shape[1:], dtype=_TORCH_DTYPES[arr.dtype],
+                       pin_memory=True)
+    view = host.numpy()
+    view[:n] = arr
+    view[n:] = 0
+    return host.to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -209,7 +274,8 @@ class ColumnBatch:
     must update both), so reading it never forces a device sync.
     """
 
-    __slots__ = ("schema", "columns", "selection", "num_rows")
+    __slots__ = ("schema", "_columns", "_selection", "num_rows",
+                 "_transient", "_upload_event")
 
     def __init__(
         self,
@@ -219,13 +285,83 @@ class ColumnBatch:
         num_rows: torch.Tensor,
     ):
         self.schema = schema
-        self.columns: Tuple[Column, ...] = tuple(columns)
-        self.selection = selection
+        self._columns: Optional[Tuple[Column, ...]] = tuple(columns)
+        self._selection: Optional[torch.Tensor] = selection
         self.num_rows = num_rows
-        if len(self.columns) != len(schema):
+        # single-owner mark (cache/donation.py)
+        self._transient = False
+        # (event, streams that waited on it) of an upload on a side stream
+        self._upload_event = None
+        if len(self._columns) != len(schema):
             raise SchemaError(
-                f"schema has {len(schema)} fields but {len(self.columns)} columns given"
+                f"schema has {len(schema)} fields but "
+                f"{len(self._columns)} columns given"
             )
+
+    @property
+    def columns(self) -> Tuple[Column, ...]:
+        cols = self._columns
+        if cols is None:
+            raise ExecutionError(
+                "read of a donated batch: its tensors went to the one "
+                "program that consumed it (cache/donation.py)")
+        return cols
+
+    @property
+    def selection(self) -> torch.Tensor:
+        sel = self._selection
+        if sel is None:
+            raise ExecutionError(
+                "read of a donated batch: its tensors went to the one "
+                "program that consumed it (cache/donation.py)")
+        return sel
+
+    # -- donation and uploads ----------------------------------------------
+
+    def payload_nbytes(self) -> int:
+        """Bytes of the columns and the selection: what a donation gives
+        up (``num_rows`` is never donated)."""
+        n = self.selection.numel() * self.selection.element_size()
+        for c in self.columns:
+            n += c.values.numel() * c.values.element_size()
+            if c.validity is not None:
+                n += c.validity.numel() * c.validity.element_size()
+        return n
+
+    def donate(self) -> None:
+        """Give up the columns and the selection: a later read raises.
+        The caller has claimed the batch with
+        ``cache.donation.consume_transient``."""
+        self._columns = None
+        self._selection = None
+
+    @property
+    def donated(self) -> bool:
+        return self._columns is None
+
+    def wait_upload(self) -> "ColumnBatch":
+        """Make the current stream wait for this batch's upload when it
+        ran on a producer's upload stream, and mark its tensors as used
+        on the current stream (``record_stream``), so the allocator does
+        not hand their blocks out again while this stream may still read
+        them. A no-op for batches uploaded on the consumer's own stream,
+        and on the CPU. Returns the batch."""
+        up = self._upload_event
+        if up is None:
+            return self
+        event, streams = up
+        cur = torch.cuda.current_stream(self.device)
+        if cur.cuda_stream in streams:
+            return self
+        cur.wait_event(event)
+        for c in self.columns:
+            c.values.record_stream(cur)
+            if c.validity is not None:
+                c.validity.record_stream(cur)
+        self.selection.record_stream(cur)
+        self.num_rows.record_stream(cur)
+        streams.add(cur.cuda_stream)
+        return self
 
     # -- constructors -------------------------------------------------------
 
@@ -241,7 +377,8 @@ class ColumnBatch:
     ) -> "ColumnBatch":
         """Build a batch on ``device`` from host arrays of physical values,
         padding to capacity. ``validity`` maps column name -> bool array of
-        length n (True = valid); columns absent from it are all-valid."""
+        length n (True = valid); columns absent from it are all-valid.
+        On a card the upload is asynchronous (see the module doc)."""
         device = torch.device(device)
         dictionaries = dictionaries or {}
         validity = validity or {}
@@ -256,35 +393,32 @@ class ColumnBatch:
         cap = capacity or bucket_capacity(n)
         if cap < n:
             raise ExecutionError(f"capacity {cap} < rows {n}")
-        cols: List[Column] = []
-        for f in schema.fields:
-            if f.name not in arrays:
-                raise SchemaError(f"missing column {f.name}")
-            arr = np.asarray(arrays[f.name])
-            want = f.dtype.device_dtype()
-            if arr.dtype != want:
-                arr = arr.astype(want)
-            if n < cap:
-                # trailing dims (fixed-size-list element axis) pad along
-                # the row axis only
-                pad = np.zeros((cap - n,) + arr.shape[1:], dtype=want)
-                arr = np.concatenate([arr, pad])
-            va = validity.get(f.name)
-            if va is not None:
-                va = np.asarray(va, dtype=np.bool_)
-                if len(va) < cap:  # padding rows are not valid
-                    va = np.concatenate(
-                        [va, np.zeros(cap - len(va), dtype=np.bool_)]
-                    )
-                va = _upload(va, device)
-            cols.append(Column(_upload(arr, device), f.dtype, va,
-                               dictionaries.get(f.name)))
-        sel = np.zeros(cap, dtype=np.bool_)
-        sel[:n] = True
-        return ColumnBatch(
-            schema, cols, _upload(sel, device),
-            torch.tensor(n, dtype=torch.int32, device=device),
-        )
+        side = device.type == "cuda" and getattr(_tls, "side", False)
+        stream = _upload_stream(device) if side else None
+        with torch.cuda.stream(stream) if side else nullcontext():
+            cols: List[Column] = []
+            for f in schema.fields:
+                if f.name not in arrays:
+                    raise SchemaError(f"missing column {f.name}")
+                arr = np.asarray(arrays[f.name])
+                want = f.dtype.device_dtype()
+                if arr.dtype != want:
+                    arr = arr.astype(want)
+                va = validity.get(f.name)
+                if va is not None:  # padding rows are not valid
+                    va = _upload(np.asarray(va, dtype=np.bool_), cap, device)
+                cols.append(Column(_upload(arr, cap, device), f.dtype, va,
+                                   dictionaries.get(f.name)))
+            batch = ColumnBatch(
+                schema, cols,
+                torch.arange(cap, device=device) < n,
+                torch.full((), n, dtype=torch.int32, device=device),
+            )
+            if side:
+                event = torch.cuda.Event()
+                event.record(stream)
+                batch._upload_event = (event, set())
+        return batch
 
     @staticmethod
     def from_pydict(
@@ -323,14 +457,19 @@ class ColumnBatch:
         return self.columns[self.schema.index_of(name)]
 
     def with_columns(self, schema: Schema, columns: Sequence[Column]) -> "ColumnBatch":
-        return ColumnBatch(schema, columns, self.selection, self.num_rows)
+        out = ColumnBatch(schema, columns, self.selection, self.num_rows)
+        # the same tensors, with the same pending upload
+        out._upload_event = self._upload_event
+        return out
 
     def with_selection(
         self, selection: torch.Tensor, num_rows: Optional[torch.Tensor] = None
     ) -> "ColumnBatch":
         if num_rows is None:
             num_rows = selection.sum(dtype=torch.int32)
-        return ColumnBatch(self.schema, self.columns, selection, num_rows)
+        out = ColumnBatch(self.schema, self.columns, selection, num_rows)
+        out._upload_event = self._upload_event
+        return out
 
     # -- host materialization ----------------------------------------------
 

@@ -30,7 +30,17 @@ What an entry does with a call depends on the device of its tensors:
 
 ``CAPTURE`` declares which namespaces capture; the others run eagerly on
 a card too. A capture that fails raises ``CaptureError``; it never falls
-back to eager execution.
+back to eager execution. Warm-ups and captures hold one process-wide
+lock: partitions may run on ingest-pool threads
+(``ingest.iter_partitions``), and the shared side stream must carry one
+capture at a time. Other threads keep replaying, and scan producers keep
+uploading on their own streams, while a capture runs: the capture's
+``thread_local`` mode forbids unsafe calls on the capturing thread only.
+
+A donating call (``call_donating``, see ``cache/donation.py``) hands the
+program a batch that gives up its tensors: on a replay right after they
+are copied into the graph's static input buffers, before the replay and
+the copies out; on the first call and eagerly, once the program returns.
 
 A graph replays every kernel it holds but none of the Python around
 them, so two things that the eager run does on the host are carried
@@ -272,17 +282,35 @@ class _CaptureScope:
 _POOLS: Dict[int, Any] = {}
 _SIDE_STREAMS: Dict[int, Any] = {}
 _POOL_LOCK = threading.Lock()
+# one warm-up or capture at a time on the shared side streams (reentrant:
+# a program's body may reach another governed entry's first call)
+_CAPTURE_LOCK = threading.RLock()
 
 
 def _pool_and_side_stream(device: torch.device):
+    """The card's graph memory pool and capture side stream, made at first
+    use. The pool is held open by an empty anchor graph captured into it:
+    torch's allocator marks a private pool freeable once no graph uses
+    it, and a later capture into that pool then fails an internal
+    assertion (seen on the card after ``governor().clear()`` had dropped
+    every program)."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     with _POOL_LOCK:
         if index not in _POOLS:
             with torch.cuda.device(index):
-                _POOLS[index] = torch.cuda.graph_pool_handle()
-                _SIDE_STREAMS[index] = torch.cuda.Stream()
-        return _POOLS[index], _SIDE_STREAMS[index]
+                pool = torch.cuda.graph_pool_handle()
+                side = torch.cuda.Stream()
+                anchor = torch.cuda.CUDAGraph()
+                with torch.cuda.stream(side), warnings.catch_warnings():
+                    warnings.filterwarnings(
+                        "ignore", message="The CUDA Graph is empty")
+                    anchor.capture_begin(pool=pool,
+                                         capture_error_mode="thread_local")
+                    anchor.capture_end()
+                _POOLS[index] = (pool, anchor)
+                _SIDE_STREAMS[index] = side
+        return _POOLS[index][0], _SIDE_STREAMS[index]
 
 
 class _EagerProgram:
@@ -324,6 +352,12 @@ class _GraphProgram:
             raise CaptureError(
                 f"{_render_key(gf.key)}: arguments on several devices "
                 f"({sorted({str(t.device) for t in leaves})})")
+        with _CAPTURE_LOCK:
+            return cls._capture(gf, args, leaves, device)
+
+    @classmethod
+    def _capture(cls, gf: "GovernedFunction", args: tuple,
+                 leaves: List[torch.Tensor], device: torch.device):
         pool, side = _pool_and_side_stream(device)
         cur = torch.cuda.current_stream(device)
         arena: dict = {}
@@ -386,18 +420,29 @@ class _GraphProgram:
         prog.calls = 1
         return out, prog, secs
 
-    def replay(self, leaves: List[torch.Tensor]):
+    def replay(self, leaves: List[torch.Tensor], donate=None):
+        """Run the graph on ``leaves``. ``donate``: the batch that gives
+        up its tensors once they are in the static input buffers."""
         if self.passthrough:
             self.calls += 1
-            return _unflatten(self.out_spec,
-                              iter([leaves[i] for i in self.alias]))
+            outs = [leaves[i] for i in self.alias]
+            if donate is not None:
+                donate.donate()
+            return _unflatten(self.out_spec, iter(outs))
         with self.lock:
             self.calls += 1
             for s, t in zip(self.static_in, leaves):
                 s.copy_(t)
+            kept = [None if i is None else leaves[i] for i in self.alias]
+            if donate is not None:
+                # the static buffers hold the inputs now: drop the batch's
+                # references (and this call's) so their blocks can serve
+                # the copies out below and the rest of the collect
+                donate.donate()
+                leaves.clear()
             self.graph.replay()
-            outs = [leaves[i] if i is not None else t.clone()
-                    for t, i in zip(self.static_out, self.alias)]
+            outs = [k if k is not None else t.clone()
+                    for t, k in zip(self.static_out, kept)]
             _STATS["graph_replays"] += 1
             for hook in self.hooks:
                 hook()
@@ -435,6 +480,12 @@ class GovernedFunction:
     def __call__(self, *args):
         return self.call_with(None, *args)
 
+    def call_donating(self, batch, *extra):
+        """Call on ``(batch, *extra)``; ``batch`` gives up its tensors
+        (see the module doc). The caller has claimed it with
+        ``cache.donation.consume_transient``."""
+        return self.call_with(None, batch, *extra, donate=batch)
+
     @staticmethod
     def _programs_per_entry() -> int:
         """Per-entry bound on programs (the JAX package's trace bound,
@@ -447,9 +498,10 @@ class GovernedFunction:
         except ValueError:
             return 128
 
-    def call_with(self, metrics, *args):
+    def call_with(self, metrics, *args, donate=None):
         """Invoke, attributing a new signature's first call to
-        ``metrics`` (an observability MetricsSet, or None)."""
+        ``metrics`` (an observability MetricsSet, or None). ``donate``:
+        an argument batch that gives up its tensors (``call_donating``)."""
         _STATS["governed_calls"] += 1
         self.calls += 1
         sig, leaves = _signature(args)
@@ -460,11 +512,15 @@ class GovernedFunction:
                 self.programs.move_to_end(sig)
         if prog is not None:
             if isinstance(prog, _GraphProgram):
-                return prog.replay(leaves)
+                return prog.replay(leaves, donate)
             prog.calls += 1
             if _cpu_capture_check is not None and self.capture and not cuda:
-                return _cpu_capture_check(self, args, prog)
-            return self.fn(*args)
+                out = _cpu_capture_check(self, args, prog)
+            else:
+                out = self.fn(*args)
+            if donate is not None:
+                donate.donate()
+            return out
         t0 = _PERF()
         if cuda and self.capture:
             out, prog, capture_secs = _GraphProgram.capture(self, args,
@@ -495,6 +551,8 @@ class GovernedFunction:
                     captured=isinstance(prog, _GraphProgram),
                     capture_seconds=round(capture_secs, 6),
                     call_seconds=round(secs, 6))
+        if donate is not None:
+            donate.donate()
         return out
 
 
@@ -509,6 +567,9 @@ class _BoundGoverned:
 
     def __call__(self, *args):
         return self.gf.call_with(self.metrics, *args)
+
+    def call_donating(self, batch, *extra):
+        return self.gf.call_with(self.metrics, batch, *extra, donate=batch)
 
 
 def _render_key(key: tuple) -> str:

@@ -1,10 +1,9 @@
 """Single-process plan execution helpers.
 
 The port of the JAX package's ``execution.py``: plan a logical plan,
-fuse it (``physical/fusion.py``), execute every partition and gather the
-live rows on the host. The JAX package's EXPLAIN rendering, result cache
-and parallel partition ingest are not ported yet; partitions run one
-after another.
+fuse it (``physical/fusion.py``), execute every partition (concurrently
+on the ingest pool, ``ingest.iter_partitions``) and gather the live rows
+on the host. The JAX package's EXPLAIN rendering is not ported yet.
 """
 
 from __future__ import annotations
@@ -118,12 +117,20 @@ def collect(plan: LogicalPlan, options=None) -> Dict[str, np.ndarray]:
 
 
 def collect_physical(phys: PhysicalPlan) -> Dict[str, np.ndarray]:
-    """Execute all partitions (in order) and concatenate live rows on
-    host as a dict of numpy arrays (logical values)."""
+    """Execute all partitions and concatenate live rows on host as a
+    dict of numpy arrays (logical values). Partitions run concurrently
+    on the ingest pool (batch order is preserved — see
+    ingest.iter_partitions); serial when the pipeline is gated off."""
+    from .ingest import iter_partitions
+    from .lifecycle import check_cancel
+
     parts: List[Dict[str, np.ndarray]] = []
-    for p in range(phys.output_partitioning().num_partitions):
-        for batch in phys.execute(p):
-            parts.append(batch.to_pydict())
+    for batch in iter_partitions(
+            phys, range(phys.output_partitioning().num_partitions)):
+        # cooperative cancellation: a fired token (ctx.cancel, the
+        # slow-query killer) stops the collect at a batch boundary
+        check_cancel()
+        parts.append(batch.to_pydict())
     if not parts:
         return {f.name: np.asarray([]) for f in phys.output_schema().fields}
     return concat_pydicts(parts)

@@ -1,6 +1,7 @@
-"""Table sources: memory and delimited text (.tbl/.csv) through the
-native scanner. Parquet, the scan cache and the ingest pipeline of the JAX
-package are not ported yet."""
+"""Table sources: memory, delimited text (.tbl/.csv) through the native
+scanner, and the caching wrapper. Parquet of the JAX package is not
+ported yet."""
 
+from .cache import CacheSource  # noqa: F401
 from .memory import MemTableSource  # noqa: F401
 from .text import CsvSource, TblSource  # noqa: F401

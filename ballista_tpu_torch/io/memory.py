@@ -59,6 +59,15 @@ class MemTableSource(TableSource):
     def num_partitions(self) -> int:
         return len(self._partitions)
 
+    def is_resident(self, partition: int, projection=None) -> bool:
+        """A memory table's batches live on their device already: a scan
+        has no parse or upload to overlap (``ScanExec._prefetchable``)."""
+        return True
+
+    def scan_cache_outcome(self, partition: int) -> Optional[str]:
+        """Memory tables do not route through the table cache."""
+        return None
+
     def scan(self, partition: int, projection: Optional[Sequence[str]] = None):
         for batch in self._partitions[partition]:
             if projection is None:

@@ -87,7 +87,12 @@ class TableSource:
     def is_resident(self, partition: int, projection=None) -> bool:
         """Whether this partition's scan output is device-resident
         right now (prefetch routing: no parse/H2D left to overlap)."""
-        return False  # the port has no residency layer yet
+        key = self.residency_key(partition, projection)
+        if key is None:
+            return False
+        from .cache.residency import process_table_cache
+
+        return process_table_cache().contains(key)
 
     def scan_cache_outcome(self, partition: int) -> Optional[str]:
         """Device-residency outcome of this partition's most recent

@@ -52,7 +52,9 @@ from ..kernels.aggregate import (
     scalar_aggregate,
 )
 from ..kernels.expr_eval import Evaluator
-from .base import PhysicalPlan, Partitioning, concat_batches
+from ..cache.donation import mark_transient
+from .base import (PhysicalPlan, Partitioning, concat_batches,
+                   donating_call)
 
 # dictionary-coded group keys with product-of-cardinalities at or below
 # this use the sort-free dense path
@@ -242,10 +244,14 @@ class HashAggregateExec(PhysicalPlan):
         if not batches:
             return
         batch = concat_batches(self._in_schema, batches)
+        del batches  # the concat's inputs: not read past it
         if not self.group_exprs:
-            yield self._exec_scalar(batch)
+            out = self._exec_scalar(batch)
         else:
-            yield self._exec_grouped(batch)
+            out = self._exec_grouped(batch)
+        # fresh program output, one downstream consumer: donatable
+        mark_transient(out)
+        yield out
 
     # grouped ---------------------------------------------------------------
 
@@ -488,8 +494,9 @@ class HashAggregateExec(PhysicalPlan):
         bound = (self._static_group_bound(probe[0])
                  if probe is not None else None)
         if bound is not None and bound <= min(DENSE_GROUP_LIMIT, cap):
-            # the dense path: cannot overflow, no sync needed
-            out, _ng = self._grouped_fn(cap)(batch)
+            # the dense path: cannot overflow, no sync needed; one call,
+            # no retry: safe to donate the batch
+            out, _ng = donating_call(self._grouped_fn(cap), batch)
             return out
         # rejected once (hash-like sparse ids / huge products) -> rejected
         # for the operator's lifetime: don't pay the stats fetch again
@@ -519,10 +526,12 @@ class HashAggregateExec(PhysicalPlan):
                 # product; the quantized table must fit the absolute cap
                 if (true_total <= self._RANGED_CAP_FACTOR * (nlive + 256)
                         and g_total <= self._RANGED_DENSE_LIMIT):
+                    # the final call on this batch (the stats were read
+                    # on the host already): donatable
                     fn = self.governed_jit(
                         ("agg.mixed", tuple(spans), tuple(layout)),
                         self._mixed_build(tuple(spans), layout))
-                    out, _ng = fn(batch, torch.tensor(
+                    out, _ng = donating_call(fn, batch, torch.tensor(
                         bases, dtype=torch.int64, device=batch.device))
                     return out  # gid < G by construction: no overflow
                 self._ranged_rejected = True
@@ -619,10 +628,12 @@ class HashAggregateExec(PhysicalPlan):
 
             return run
 
-        vals, valids = self.governed_jit(("agg.scalar",), build)(batch)
+        # single call, batch never read again: donate when transient
+        dev = batch.device
+        vals, valids = donating_call(
+            self.governed_jit(("agg.scalar",), build), batch)
 
         cap = 8
-        dev = batch.device
 
         def expand(v, valid, dt):
             arr = torch.zeros((cap,), dtype=dt.torch_dtype(), device=dev)

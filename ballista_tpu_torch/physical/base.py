@@ -8,8 +8,10 @@ graph per call signature on a card. A chain of pipeline operators
 (filter/projection) runs as one such program per batch; whole-stage
 fusion (``fusion.py``) folds chains into the aggregate or join program
 they feed. Operators key their programs on ``compile_signature`` and
-hand the governor closures over a config-only ``trace_twin``. The JAX
-package's donating ``governed_call`` is not ported yet.
+hand the governor closures over a config-only ``trace_twin``. A
+single-consumer batch is donated to the program that consumes it
+(``donating_call``, the JAX package's ``governed_call``;
+``cache/donation.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Iterator, List, Optional
 import numpy as np
 import torch
 
+from ..cache.donation import (consume_transient, donation_enabled,
+                              mark_transient, record_donation)
 from ..columnar import Column, ColumnBatch, Dictionary
 from ..compile import bucket_capacity, governed
 from ..datatypes import Schema
@@ -248,7 +252,8 @@ class PipelineOp(PhysicalPlan):
         # compacting to ever-different ladder rungs.
         compact = any(op.compactable for op in chain)
         for batch in source.execute(partition):
-            out = fused(batch)
+            # a single-consumer scan/concat output is donated to the chain
+            out = donating_call(fused, batch)
             if compact and getattr(self, "_compact_misses", 0) < 2:
                 res = maybe_compact(
                     out, floor=getattr(self, "_compact_floor", 8))
@@ -261,7 +266,23 @@ class PipelineOp(PhysicalPlan):
                         getattr(self, "_compact_floor", 8), res.capacity)
                     self.metrics().add_counter("compact_count")
                 out = res
+            # the chain's output (or its compaction) has exactly one
+            # downstream consumer: donation-eligible
+            mark_transient(out)
             yield out
+
+
+def donating_call(fn, batch: ColumnBatch, *extra):
+    """``fn(batch, *extra)`` for a governed ``fn``, donating ``batch``
+    when it is transient and donation is enabled: the batch's claim is
+    consumed, its columns' and selection's bytes are counted, and it
+    gives up its tensors (``call_donating``). Unlike the JAX package's
+    donating entries, the program is the same either way: only when the
+    batch drops its tensors differs."""
+    if donation_enabled() and consume_transient(batch):
+        record_donation(batch.payload_nbytes())
+        return fn.call_donating(batch, *extra)
+    return fn(batch, *extra)
 
 
 # ---------------------------------------------------------------------------
@@ -329,7 +350,12 @@ def concat_batches(schema: Schema, batches: List[ColumnBatch]) -> ColumnBatch:
         cols.append(Column(vals, f.dtype, validity, dict_))
     selection = torch.cat([b.selection for b in batches])
     num_rows = torch.stack([b.num_rows for b in batches]).sum(dtype=torch.int32)
-    return ColumnBatch(schema, cols, selection, num_rows)
+    out = ColumnBatch(schema, cols, selection, num_rows)
+    # fresh torch.cat tensors with exactly one consumer (the program the
+    # concat feeds): donation-eligible. The len == 1 pass-through above
+    # keeps the input's own mark: pinned cache batches stay pinned.
+    mark_transient(out)
+    return out
 
 
 def maybe_compact(batch: ColumnBatch, shrink_factor: int = 4,

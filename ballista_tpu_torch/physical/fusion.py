@@ -37,6 +37,7 @@ from typing import Dict, Iterator, List, Optional, Sequence
 import torch
 
 from ..columnar import Column, ColumnBatch, round_capacity
+from ..cache.donation import mark_transient
 from ..compile import fingerprint
 from ..datatypes import Field, Schema
 from .. import expr as ex
@@ -187,10 +188,14 @@ class FusedStageExec(HashAggregateExec):
         if not batches:
             return
         batch = concat_batches(self.source.output_schema(), batches)
+        del batches  # the concat's inputs: not read past it
         if not self.group_exprs:
-            yield self._exec_scalar(batch)
+            out = self._exec_scalar(batch)
         else:
-            yield self._exec_grouped(batch)
+            out = self._exec_grouped(batch)
+        # fresh program output, one downstream consumer: donatable
+        mark_transient(out)
+        yield out
 
 
 # ---------------------------------------------------------------------------

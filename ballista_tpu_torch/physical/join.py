@@ -37,6 +37,7 @@ from ..columnar import (Column, ColumnBatch, Dictionary, empty_batch,
 from ..compile import bucket_capacity
 from ..datatypes import Schema
 from ..errors import ExecutionError, NotImplementedError_
+from ..ingest import KeyedLocks
 from ..kernels import join as join_k
 from .base import PhysicalPlan, Partitioning, concat_batches, maybe_compact
 
@@ -98,6 +99,9 @@ class JoinExec(PhysicalPlan):
         # partition -> (table, batch, unique, has_null, key mode,
         #               codec tables, build keys, build live)
         self._build_data = {}
+        # one build per key even when partitions run concurrently on the
+        # ingest pool (ingest.iter_partitions)
+        self._build_locks = KeyedLocks()
         self._remap_cache = {}
         self._expand_cap_floor = 0
 
@@ -317,8 +321,14 @@ class JoinExec(PhysicalPlan):
 
     def _materialize_build(self, partition: int = 0):
         key = partition if self.partitioned else 0
-        if key in self._build_data:
+        if key in self._build_data:  # fast path: no lock once built
             return self._build_data[key]
+        with self._build_locks.get(key):
+            if key not in self._build_data:
+                self._build_data[key] = self._build_side(partition)
+        return self._build_data[key]
+
+    def _build_side(self, partition: int):
         if self.partitioned:
             batches = list(self.build.execute(partition))
         else:
@@ -365,9 +375,8 @@ class JoinExec(PhysicalPlan):
         if table is None:
             table, uniq = join_k.build_sorted_with_unique(keys, live)
             unique = bool(uniq)
-        self._build_data[key] = (table, bb, unique, has_null_key, mode,
-                                 key_tables, keys, live)
-        return self._build_data[key]
+        return (table, bb, unique, has_null_key, mode, key_tables, keys,
+                live)
 
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         (table, build_batch, unique, has_null_key, mode, key_tables,

@@ -13,12 +13,13 @@ stays between them, on the host.
 
 from __future__ import annotations
 
+import threading
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from ..columnar import ColumnBatch
+from ..columnar import ColumnBatch, side_stream_uploads
 from ..compile import bucket_capacity, fingerprint
 from ..compile.governor import device_constant
 from ..datatypes import Schema
@@ -61,15 +62,44 @@ def compute_partition_ids(batch: ColumnBatch, hash_exprs, num_partitions: int,
     return idx % num_partitions
 
 
+def _side_stream_scan(gen):
+    """Drive a scan generator with ``side_stream_uploads`` bound only
+    while it advances (per ``next()``, as ``phases.bound_iter`` binds the
+    recorder), so whichever thread drives it uploads on its own stream
+    and nothing else on that thread does."""
+    while True:
+        with side_stream_uploads():
+            try:
+                item = next(gen)
+            except StopIteration:
+                return
+        yield item
+
+
 class ScanExec(PhysicalPlan):
-    """Table scan over a partitioned source (the serial pull loop; the
-    JAX package's prefetching ingest pipeline is not ported yet)."""
+    """Table scan over a partitioned source.
+
+    Execution rides the ingest pipeline (``ingest/``), as in the JAX
+    package: with ``BALLISTA_PREFETCH_BATCHES`` > 0 the source generator
+    runs on a pool worker behind a bounded queue, so parse+H2D of chunk
+    N+1 overlaps the consumer's device work on chunk N, and scans
+    ``prime()``d ahead (the collect primes every scan) overlap each
+    other cross-table. A producer uploads on its own stream; each batch
+    reaches the consumer only through ``wait_upload``, which orders the
+    consumer's stream after the upload. ``BALLISTA_PREFETCH_BATCHES=0``
+    restores the serial inline pull exactly (uploads on the consumer's
+    stream)."""
 
     def __init__(self, table_name: str, source: TableSource,
                  projection: Optional[Sequence[str]] = None):
         self.table_name = table_name
         self.source = source
         self.projection = tuple(projection) if projection is not None else None
+        # partition -> live PrefetchHandle (primed ahead of execution);
+        # the lock covers priming from the collect thread racing a
+        # partition's execute() on a pool worker
+        self._primed: dict = {}
+        self._primed_lock = threading.Lock()
 
     def output_schema(self) -> Schema:
         s = self.source.table_schema()
@@ -81,8 +111,82 @@ class ScanExec(PhysicalPlan):
     def with_new_children(self, children):
         return self
 
+    def _recorder(self):
+        from ..ingest.phases import PhaseRecorder
+
+        return PhaseRecorder(self.metrics())
+
+    def _prefetchable(self, partition: int) -> bool:
+        """False when there is no parse/H2D to overlap: memory-resident
+        sources, cache sources already materialized for this
+        (partition, projection), and device-resident partitions (table
+        cache hit) — the warm path stays queue-free."""
+        from ..io.cache import CacheSource
+
+        src = self.source
+        if isinstance(src, CacheSource) and \
+                src.is_materialized(partition, self.projection):
+            return False
+        return not src.is_resident(partition, self.projection)
+
+    def prime(self, partition: int):
+        """Start background parse+H2D for one partition on the ingest
+        pool (idempotent). Returns the handle, or None when the
+        pipeline is gated off or there is nothing to overlap."""
+        from ..ingest import prefetch_batches
+        from ..ingest.pipeline import PrefetchHandle
+
+        depth = prefetch_batches()
+        if depth <= 0 or not self._prefetchable(partition):
+            return None
+        with self._primed_lock:
+            h = self._primed.get(partition)
+            if h is None:
+                h = PrefetchHandle(
+                    lambda p=partition: _side_stream_scan(
+                        self.source.scan(p, self.projection)),
+                    depth,
+                    label=f"{self.table_name}[{partition}]",
+                    recorder=self._recorder(),
+                )
+                self._primed[partition] = h
+        return h
+
+    def cancel_primed(self) -> None:
+        """Drop every unconsumed primed handle (plan abandoned): producers
+        stop, queued batches release."""
+        with self._primed_lock:
+            handles, self._primed = list(self._primed.values()), {}
+        for h in handles:
+            h.cancel()
+
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
-        yield from self.source.scan(partition, self.projection)
+        from ..ingest import prefetch_batches
+        from ..ingest.phases import bound_iter
+
+        if prefetch_batches() > 0:
+            self.prime(partition)  # no-op when nothing to overlap
+        with self._primed_lock:
+            handle = self._primed.pop(partition, None)
+        if handle is None:  # pipeline off or resident: the serial pull
+            for batch in bound_iter(
+                    self.source.scan(partition, self.projection),
+                    self._recorder()):
+                yield batch.wait_upload()
+        else:
+            try:
+                for batch in handle:
+                    yield batch.wait_upload()
+            finally:
+                # consumer may abandon the stream early (LimitExec):
+                # stop the producer instead of leaving it blocked on a
+                # full queue
+                handle.cancel()
+        self._record_cache_outcome(partition)
+
+    def _record_cache_outcome(self, partition: int) -> None:
+        if self.source.scan_cache_outcome(partition) == "hit":
+            self.metrics().add_counter("table_cache_hits")
 
     def estimated_rows(self):
         return self.source.estimated_rows()
@@ -90,6 +194,21 @@ class ScanExec(PhysicalPlan):
     def display(self) -> str:
         p = f" projection={list(self.projection)}" if self.projection else ""
         return f"ScanExec: {self.table_name}{p}"
+
+    def pretty_metrics(self, indent: int = 0) -> str:
+        """Plan line with the table-cache outcome of the latest scan(s)
+        appended — deliberately NOT in display(), which feeds compile
+        signatures and must stay run-invariant."""
+        outcomes = set()
+        for p in range(self.source.num_partitions()):
+            o = self.source.scan_cache_outcome(p)
+            if o is not None:
+                outcomes.add(o)
+        cache_ann = (f" [cache: {'|'.join(sorted(outcomes))}]"
+                     if outcomes else "")
+        ann = self.metrics().summary()
+        return ("  " * indent + self.display() + cache_ann
+                + (f", metrics=[{ann}]" if ann else "") + "\n")
 
 
 class FilterExec(PipelineOp):
@@ -296,9 +415,11 @@ class RepartitionExec(PhysicalPlan):
     """Re-partition input into N output partitions by hash or round-robin.
 
     Single-process: the child's partitions are materialized once, in
-    order and serially (the port has no ingest pool), each batch is
-    sorted by destination partition once, and output partition p gathers
-    its rows to the front of a batch that fits them."""
+    order and serially, under a per-instance lock (partitions of this
+    operator may run concurrently on the ingest pool,
+    ``ingest.iter_partitions``); each batch is sorted by destination
+    partition once, and output partition p gathers its rows to the
+    front of a batch that fits them."""
 
     def __init__(self, child: PhysicalPlan, num_partitions: int,
                  hash_exprs: Optional[List[ex.Expr]] = None):
@@ -307,6 +428,7 @@ class RepartitionExec(PhysicalPlan):
         self.hash_exprs = hash_exprs
         self._ev = Evaluator(child.output_schema())
         self._parts = None
+        self._parts_lock = threading.Lock()
 
     def _signature_parts(self) -> tuple:
         return (self.num_partitions, fingerprint(self.hash_exprs),
@@ -344,39 +466,42 @@ class RepartitionExec(PhysicalPlan):
         """[(batch, perm, host counts)]: every child batch, the stable
         permutation that orders its live rows by destination partition
         (dead rows last), and its rows per partition."""
-        if self._parts is None:
+        with self._parts_lock:
+            if self._parts is None:
+                self._parts = self._sorted_parts()
+            return self._parts
 
-            def build():
-                tw = self.trace_twin()  # don't pin materialized batches
-                n_out = tw.num_partitions
+    def _sorted_parts(self):
+        def build():
+            tw = self.trace_twin()  # don't pin materialized batches
+            n_out = tw.num_partitions
 
-                def sort_by_pid(b: ColumnBatch, offset):
-                    pids = tw.partition_ids(b, offset)
-                    d = torch.where(b.selection, pids, n_out)  # dead last
-                    perm = torch.argsort(d, stable=True)
-                    # a histogram by scatter: bincount reads its input's
-                    # maximum back to the host on a card
-                    counts = torch.zeros((n_out + 1,), dtype=torch.int64,
-                                         device=b.device)
-                    counts.index_add_(0, d.to(torch.int64),
-                                      torch.ones_like(d, dtype=torch.int64))
-                    return perm, counts[:n_out]
+            def sort_by_pid(b: ColumnBatch, offset):
+                pids = tw.partition_ids(b, offset)
+                d = torch.where(b.selection, pids, n_out)  # dead last
+                perm = torch.argsort(d, stable=True)
+                # a histogram by scatter: bincount reads its input's
+                # maximum back to the host on a card
+                counts = torch.zeros((n_out + 1,), dtype=torch.int64,
+                                     device=b.device)
+                counts.index_add_(0, d.to(torch.int64),
+                                  torch.ones_like(d, dtype=torch.int64))
+                return perm, counts[:n_out]
 
-                return sort_by_pid
+            return sort_by_pid
 
-            sort_fn = self.governed_jit(("repart.sort_by_pid",), build)
-            parts = []
-            offset = 0
-            for p in range(self.child.output_partitioning().num_partitions):
-                for batch in self.child.execute(p):
-                    off = torch.full((), offset, dtype=torch.int32,
-                                     device=batch.device)
-                    perm, counts = sort_fn(batch, off)
-                    # the count fetch, between programs
-                    parts.append((batch, perm, counts.cpu().numpy()))
-                    offset += batch.num_rows_host()
-            self._parts = parts
-        return self._parts
+        sort_fn = self.governed_jit(("repart.sort_by_pid",), build)
+        parts = []
+        offset = 0
+        for p in range(self.child.output_partitioning().num_partitions):
+            for batch in self.child.execute(p):
+                off = torch.full((), offset, dtype=torch.int32,
+                                 device=batch.device)
+                perm, counts = sort_fn(batch, off)
+                # the count fetch, between programs
+                parts.append((batch, perm, counts.cpu().numpy()))
+                offset += batch.num_rows_host()
+        return parts
 
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         """Yields ONE COMPACTED batch: the partition's rows of every child

@@ -58,18 +58,38 @@ non-zero exit):
    ``FusedDistinctCountExec``); captures, replays, capture seconds and
    peak memory of each, and one profiled warm collect (wall, card-busy
    share, kernels on the card, host-side launches by kind);
-7. hash partition ids on the card: ``hash_partition_ids`` on full-range
+7. ingest and warm path: q1, q3, q5 and q16 at SF1, each cold and then
+   warm, from a cleared table cache and governor, at the default table
+   cache budget, at ``BALLISTA_TABLE_CACHE_BUDGET_MB=8192`` (every table
+   of the four fits), with ``BALLISTA_TABLE_CACHE=off`` and with the
+   serial loop (``BALLISTA_PREFETCH_BATCHES=0`` and
+   ``BALLISTA_INGEST_THREADS=1``); then q1 at a 1 MB budget, which must
+   re-ingest. Each collect equals the port on the CPU, every observed
+   kernel call is bit-equal to the plain version, and after each no
+   tensor the cache pins was written (``_version`` and a copy). Each
+   prints its wall, the cache's hits, fills, evictions and resident
+   bytes, ``elapsed_parse`` and ``elapsed_h2d``, donated buffers and
+   bytes, captures, replays and peak memory. At 8192 MB a warm collect
+   must serve every scan partition from the cache (no fill, no parse),
+   replay and capture nothing, and a profiled one must copy under 1 MB
+   to the card (the trace's memcpy records); so must a second context's
+   first collect of each query. Then the upload-under-capture check:
+   three producer threads upload lineitem chunks on their own streams
+   while q1 runs cold and 16 more programs are captured; some upload
+   must be queued while a capture is open, every upload must equal its
+   source and every program its eager result;
+8. hash partition ids on the card: ``hash_partition_ids`` on full-range
    int64 keys and on SF1 ``l_orderkey``, and ``compute_partition_ids`` on
    ``l_orderkey``, on the utf8 ``l_shipmode`` and on both, for P = 8 and
    P = 7, each equal to the ids the CPU computes, bit for bit;
-8. all 22 TPC-H queries at SF0.05 (two files a table, in
+9. all 22 TPC-H queries at SF0.05 (two files a table, in
    ``bench_data/sf0.05``), fused, on the card and through the port on
    the CPU: integer, decimal, date and string columns equal exactly,
    float columns within rtol 1e-6;
-9. in a process of its own, a governed program that cannot be captured
+10. in a process of its own, a governed program that cannot be captured
    (it reads a device value on the host) must raise ``CaptureError``
    rather than run eagerly;
-10. the kernel list, as one JSON line; its times, replicas and VEC are
+11. the kernel list, as one JSON line; its times, replicas and VEC are
     those on q1's main-path inputs, with q5's launches and times beside
     them.
 
@@ -973,10 +993,371 @@ def phase_fusion(data_dir: str):
         finally:
             os.environ.pop("BALLISTA_FUSION", None)
     governor().clear()
-    return rows
+    return rows, want
 
 
 # -- phase 7 ----------------------------------------------------------------
+
+INGEST_CONFIGS = (
+    ("default budget", {}),
+    ("8192 MB budget", {"BALLISTA_TABLE_CACHE_BUDGET_MB": "8192"}),
+    ("cache off", {"BALLISTA_TABLE_CACHE": "off"}),
+    ("serial", {"BALLISTA_PREFETCH_BATCHES": "0",
+                "BALLISTA_INGEST_THREADS": "1"}),
+)
+INGEST_KNOBS = ("BALLISTA_TABLE_CACHE", "BALLISTA_TABLE_CACHE_BUDGET_MB",
+                "BALLISTA_PREFETCH_BATCHES", "BALLISTA_INGEST_THREADS")
+
+
+def set_ingest_env(env: dict) -> None:
+    """The ingest and table-cache knobs of one configuration (the rest at
+    their defaults), with the ingest pool rebuilt to match."""
+    from ballista_tpu_torch import ingest
+
+    for knob in INGEST_KNOBS:
+        os.environ.pop(knob, None)
+    os.environ.update(env)
+    ingest.reconfigure()
+
+
+def scan_phase_seconds(phys) -> tuple:
+    """(elapsed_parse, elapsed_h2d) summed over the plan's scans: the
+    host's thread-seconds of the latest collect."""
+    from ballista_tpu_torch.physical.operators import ScanExec
+
+    parse = h2d = 0.0
+    for node in find_nodes(phys, ScanExec):
+        vals = node.metrics().values()
+        parse += vals.get("elapsed_parse", 0.0)
+        h2d += vals.get("elapsed_h2d", 0.0)
+    return parse, h2d
+
+
+def scan_partitions(phys) -> int:
+    from ballista_tpu_torch.physical.operators import ScanExec
+
+    return sum(n.source.num_partitions() for n in find_nodes(phys, ScanExec))
+
+
+class PinnedSnapshot:
+    """A copy of every tensor the table cache pins, taken when it is
+    first seen, with its ``_version``: no later query may write into a
+    pinned tensor. Entries evicted from the cache are dropped."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def check(self, label: str) -> int:
+        from ballista_tpu_torch.cache.residency import (batch_tensors,
+                                                        process_table_cache)
+
+        now = {id(t): t for b in process_table_cache().pinned_batches()
+               for t in batch_tensors(b)}
+        for key in [k for k in self.seen if k not in now]:
+            del self.seen[key]  # evicted
+        for key, (t, version, copy) in self.seen.items():
+            if t._version != version or not torch.equal(t, copy):
+                raise AssertionError(f"{label}: a tensor the table cache "
+                                     f"pins was written")
+        for key, t in now.items():
+            if key not in self.seen:
+                self.seen[key] = (t, t._version, t.clone())
+        return len(self.seen)
+
+
+def profile_h2d(df, label: str):
+    """One more collect of ``df`` under ``torch.profiler``: (wall s,
+    card-busy ms, host-to-device copies, their bytes), the bytes read
+    from the trace's memcpy records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        df.to_pydict()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0)
+    os.makedirs("bench_data", exist_ok=True)
+    path = os.path.join("bench_data", f"trace-{label}-{os.getpid()}.json")
+    prof.export_chrome_trace(path)
+    try:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+              and "HtoD" in e.get("name", "")]
+    if any("bytes" not in e.get("args", {}) for e in copies):
+        raise AssertionError(f"{label}: a memcpy record of the trace has "
+                             f"no byte count")
+    return wall, busy, len(copies), sum(e["args"]["bytes"] for e in copies)
+
+
+def upload_under_capture(data_dir: str, sql: str, want) -> dict:
+    """Producer threads upload q1's lineitem columns on their own streams,
+    in 2^20-row chunks, while this thread runs q1 cold from a cleared
+    governor, which captures its programs, and then captures 16 programs
+    of 200 kernels each: every upload must equal its host source, every
+    program its eager result, q1 the port on the CPU, and some upload
+    must have been queued while a capture was open."""
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.columnar import ColumnBatch, side_stream_uploads
+    from ballista_tpu_torch.compile import compile_stats, governed, governor
+    from ballista_tpu_torch.io import native
+    from ballista_tpu_torch.testing.tpch_schema import (TPCH_SCHEMAS,
+                                                        register_tpch)
+
+    sch = TPCH_SCHEMAS["lineitem"]
+    cols = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+            "l_shipdate"]
+    n, arrays, _, _ = native.scan_file(
+        os.path.join(data_dir, "lineitem", "partition0.tbl"), sch, cols)
+    sub = sch.project(cols)
+    chunk = 1 << 20
+    stop = threading.Event()
+    uploads, spans, errors = [], [], []
+
+    def producer(k: int):
+        try:
+            start = k * chunk
+            while not stop.is_set():
+                lo = start % n
+                part = {c: a[lo:lo + chunk] for c, a in arrays.items()}
+                t0 = time.perf_counter()
+                with side_stream_uploads():
+                    b = ColumnBatch.from_numpy(sub, part, capacity=chunk,
+                                               device="cuda")
+                spans.append((t0, time.perf_counter()))
+                uploads.append((lo, b))
+                while len(uploads) > 48:  # bound the card memory held
+                    uploads.pop(0)
+                start += 3 * chunk
+        except BaseException as e:  # re-raised below, on the main thread
+            errors.append(e)
+
+    # the governor's captures, as the card's graph API sees them
+    windows = []
+    real_begin = torch.cuda.CUDAGraph.capture_begin
+    real_end = torch.cuda.CUDAGraph.capture_end
+
+    def begin(graph, *a, **kw):
+        windows.append([time.perf_counter(), None])
+        return real_begin(graph, *a, **kw)
+
+    def end(graph, *a, **kw):
+        out = real_end(graph, *a, **kw)
+        windows[-1][1] = time.perf_counter()
+        return out
+
+    def many_kernels(x):
+        for _ in range(200):
+            x = x * 3 + 1
+        return x.cumsum(0)
+
+    governor().clear()
+    ctx = BallistaContext.standalone()
+    register_tpch(ctx, data_dir, tables=["lineitem"])
+    threads = [threading.Thread(target=producer, args=(k,)) for k in range(3)]
+    st0 = compile_stats()["graph_captures"]
+    torch.cuda.CUDAGraph.capture_begin = begin
+    torch.cuda.CUDAGraph.capture_end = end
+    for t in threads:
+        t.start()
+    try:
+        got = ctx.sql(sql).to_pydict()
+        q1_captures = compile_stats()["graph_captures"] - st0
+        x = torch.arange(1 << 20, device="cuda")
+        want_x = many_kernels(x)
+        for i in range(16):
+            fn = governed(("sort.run", "chip_smoke.upload_capture", i),
+                          lambda: many_kernels)
+            for _ in range(3):  # capture, then two replays
+                if not torch.equal(fn(x), want_x):
+                    raise AssertionError("a program captured while "
+                                         "producers uploaded is wrong")
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.CUDAGraph.capture_begin = real_begin
+        torch.cuda.CUDAGraph.capture_end = real_end
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an upload producer did not stop")
+    if errors:
+        raise errors[0]
+    assert_equal_results("q1 under concurrent uploads", got, want)
+    if not q1_captures:
+        raise AssertionError("q1 captured no program")
+    during = sum(any(a < w1 and w0 < b for w0, w1 in windows)
+                 for a, b in spans)
+    if not during:
+        raise AssertionError("no upload was queued while a capture was open")
+    for lo, b in uploads:
+        b.wait_upload()
+        rows = min(chunk, n - lo)
+        for c in cols:
+            if not np.array_equal(b.column(c).values[:rows].cpu().numpy(),
+                                  arrays[c][lo:lo + rows]):
+                raise AssertionError(f"upload of {c} rows {lo}.. differs "
+                                     f"from its source")
+    log(f"# upload under capture: {len(windows)} captures ({q1_captures} "
+        f"of q1's cold collect) while 3 producers queued {len(spans)} "
+        f"uploads of {chunk} rows, {during} of them while a capture was "
+        f"open; every program right, the last {len(uploads)} uploads equal "
+        f"their sources, q1 == port on cpu")
+    return {"captures": len(windows), "q1_captures": q1_captures,
+            "uploads": len(spans), "uploads_during_capture": during}
+
+
+def phase_ingest(data_dir: str, want: dict):
+    """The ingest and warm path at SF1: q1, q3, q5 and q16, each cold and
+    then warm, from a cleared table cache and governor, under each of
+    ``INGEST_CONFIGS``; q1 at a 1 MB budget; the upload-under-capture
+    check. Every collect equals the port on the CPU, every kernel call
+    the plain version, and no query writes into a pinned tensor."""
+    import gc
+
+    from ballista_tpu_torch.cache import cache_counters, reset_cache_stats
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import compile_stats, governor
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    sqls = {q: open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            for q in FUSION_QUERIES}
+    rows = []
+
+    def run(df, q, config, run_name, snap):
+        reset_cache_stats()
+        st0 = compile_stats()
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with KernelCallLog() as spy:
+            t0 = time.perf_counter()
+            out = df.to_pydict()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        st1 = compile_stats()
+        cc = cache_counters()
+        parse, h2d = scan_phase_seconds(df.physical_plan())
+        row = {"query": q, "config": config, "run": run_name, "wall_s": wall,
+               "hits": cc["table_cache_hits"],
+               "fills": cc["table_cache_fills"],
+               "evictions": cc["table_cache_evictions"],
+               "resident_mb": cc["table_cache_resident_bytes"] / 2 ** 20,
+               "parse_s": parse, "h2d_s": h2d,
+               "donated_buffers": cc["donated_buffers"],
+               "donated_mb": cc["donated_bytes"] / 2 ** 20,
+               "captures": st1["graph_captures"] - st0["graph_captures"],
+               "replays": st1["graph_replays"] - st0["graph_replays"],
+               "peak_mb": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+               "partitions": scan_partitions(df.physical_plan())}
+        assert_equal_results(f"{q} {config} {run_name} cuda vs cpu", out,
+                             want[q])
+        check_observed(spy.calls, f"{q} {config} {run_name}")
+        row["observed_kernel_calls"] = len(spy.calls)
+        row["pinned_tensors"] = snap.check(f"{q} {config} {run_name}")
+        log(f"# ingest {config} {q} {run_name}: {wall:.4f} s; cache hits "
+            f"{row['hits']}/{row['partitions']} partitions, fills "
+            f"{row['fills']}, evictions {row['evictions']}, resident "
+            f"{row['resident_mb']:.1f} MB; parse {parse:.4f} s, h2d "
+            f"{h2d:.4f} s (host thread-seconds); donated "
+            f"{row['donated_buffers']} ({row['donated_mb']:.1f} MB); "
+            f"captures {row['captures']}, replays {row['replays']}; peak "
+            f"{row['peak_mb']:.1f} MB over {base / 2 ** 20:.1f} MB; == port "
+            f"on cpu")
+        rows.append(row)
+        return row
+
+    try:
+        for config, env in INGEST_CONFIGS:
+            set_ingest_env(env)
+            residency._reset_for_tests()
+            governor().clear()
+            snap = PinnedSnapshot()
+            ctx = BallistaContext.standalone()
+            register_tpch(ctx, data_dir)
+            for q in FUSION_QUERIES:
+                df = ctx.sql(sqls[q])
+                run(df, q, config, "cold", snap)
+                warm = run(df, q, config, "warm", snap)
+                if config == "8192 MB budget":
+                    if (warm["fills"] or warm["parse_s"]
+                            or warm["hits"] != warm["partitions"]):
+                        raise AssertionError(
+                            f"{q} at 8192 MB: the warm collect must serve "
+                            f"every scan partition from the cache: {warm}")
+                    if warm["captures"] or not warm["replays"]:
+                        raise AssertionError(
+                            f"{q} at 8192 MB: the warm collect must replay "
+                            f"and capture none: {warm}")
+                    (warm["profiled_wall_s"], warm["busy_ms"],
+                     warm["h2d_copies"], warm["h2d_bytes"]) = profile_h2d(
+                        df, q)
+                    warm["busy_share"] = warm["busy_ms"] / (
+                        1e3 * warm["profiled_wall_s"])
+                    # table data is hundreds of MB; what a warm collect
+                    # may still upload is constants of a few KB
+                    if warm["h2d_bytes"] > (1 << 20):
+                        raise AssertionError(
+                            f"{q} at 8192 MB: the warm collect copied "
+                            f"{warm['h2d_bytes']} bytes to the card")
+                    log(f"# ingest 8192 MB {q} warm, profiled: "
+                        f"{warm['profiled_wall_s'] * 1e3:.1f} ms, card busy "
+                        f"{warm['busy_ms']:.1f} ms "
+                        f"({100 * warm['busy_share']:.1f}%), "
+                        f"{warm['h2d_copies']} host-to-device copies of "
+                        f"{warm['h2d_bytes']} bytes in all")
+                elif config == "cache off" and (warm["hits"] or warm["fills"]):
+                    raise AssertionError(f"{q} cache off: {warm}")
+                del df
+            del ctx
+            if config == "8192 MB budget":
+                # a second context over the same files: every scan is a
+                # hit, and its sources adopt the cached batches'
+                # dictionaries, so the first context's graphs replay
+                other = BallistaContext.standalone()
+                register_tpch(other, data_dir)
+                for q in FUSION_QUERIES:
+                    r = run(other.sql(sqls[q]), q, config, "second context",
+                            snap)
+                    if (r["fills"] or r["hits"] != r["partitions"]
+                            or r["captures"] or not r["replays"]):
+                        raise AssertionError(
+                            f"{q}: a second context's collect must be "
+                            f"served from the cache and replay only: {r}")
+                del other
+        # q1 at a 1 MB budget: no table fits, every collect re-ingests
+        set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "1"})
+        residency._reset_for_tests()
+        snap = PinnedSnapshot()
+        ctx = BallistaContext.standalone()
+        register_tpch(ctx, data_dir)
+        df = ctx.sql(sqls["q1"])
+        for run_name in ("cold", "warm"):
+            r = run(df, "q1", "1 MB budget", run_name, snap)
+            if r["hits"] or not r["parse_s"]:
+                raise AssertionError(f"q1 at 1 MB must re-ingest: {r}")
+        del df, ctx
+        set_ingest_env({})
+        residency._reset_for_tests()
+        capture = upload_under_capture(data_dir, sqls["q1"], want["q1"])
+    finally:
+        set_ingest_env({})
+    residency._reset_for_tests()
+    governor().clear()
+    log(f"# ingest host: {os.cpu_count()} CPUs")
+    return rows, capture
+
+
+# -- phase 8 ----------------------------------------------------------------
 
 
 def phase_hash_ids(data_dir: str) -> None:
@@ -1033,7 +1414,7 @@ def phase_hash_ids(data_dir: str) -> None:
                 f"rows per partition {counts.tolist()}")
 
 
-# -- phase 8 ----------------------------------------------------------------
+# -- phase 9 ----------------------------------------------------------------
 
 
 def assert_close_results(name: str, got, want) -> None:
@@ -1178,7 +1559,8 @@ def main() -> int:
     join_timings, q5_launches, q5_main, q5_shapes = phase_joins(data_dir)
     timings.update(join_timings)
     log(f"# q5 kernel shapes (N, K, G): {q5_shapes}")
-    fusion_rows = phase_fusion(data_dir)
+    fusion_rows, cpu_results = phase_fusion(data_dir)
+    ingest_rows, capture_check = phase_ingest(data_dir, cpu_results)
     phase_hash_ids(data_dir)
     small_secs = phase_all_queries(small_dir)
     phase_capture_failure()
@@ -1187,6 +1569,8 @@ def main() -> int:
             profile_query(data_dir, q)
     log(f"# timings: {json.dumps(timings)}")
     log(f"# fusion: {json.dumps(fusion_rows)}")
+    log(f"# ingest: {json.dumps(ingest_rows)}")
+    log(f"# upload under capture: {json.dumps(capture_check)}")
     log(f"# sf{SMALL_SCALE:g} seconds on the card: {json.dumps(small_secs)}")
     kernels = [{
         "name": "dense_grouped_sums",

@@ -574,3 +574,24 @@ def test_cuda_kernel_first_call_inside_a_capture():
     want = ds.dense_grouped_sums_reference(gids, live, vals, g)
     assert torch.equal(sums[0], want[0][0])
     assert torch.equal(counts, want[1]) and torch.equal(first, want[2])
+
+
+def test_cuda_capture_after_every_program_was_dropped():
+    """Clearing the governor drops every graph in the card's pool; a later
+    capture into the same pool must still work (the pool's anchor graph
+    keeps torch's allocator from marking it freeable)."""
+    _needs_card()
+    fn = governed(("sort.run", "test.cuda.before_clear"),
+                  lambda: (lambda x: x * 2 + 1))
+    x = torch.arange(1 << 12, device="cuda")
+    for _ in range(2):
+        assert torch.equal(fn(x), x * 2 + 1)
+    governor().clear()
+    del fn
+    gc.collect()
+    again = governed(("sort.run", "test.cuda.after_clear"),
+                     lambda: (lambda x: x * 5 - 2))
+    before = compile_stats()["graph_captures"]
+    for _ in range(2):
+        assert torch.equal(again(x), x * 5 - 2)
+    assert compile_stats()["graph_captures"] == before + 1
