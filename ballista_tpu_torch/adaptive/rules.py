@@ -1,0 +1,200 @@
+"""Pure AQE decision functions (no engine state, unit-testable).
+A copy of the JAX package's ``adaptive/rules.py``.
+
+A *reader layout* describes how a consumer stage's tasks map onto the
+shuffle files a producing stage wrote. Producers write one file per
+(producer partition p, output partition q); the static layout gives each
+consumer task one q read across all p. Adaptive layouts regroup those
+files:
+
+    layout: List[List[ReadRange]]     # one entry per NEW consumer task
+    ReadRange = (out_lo, out_hi, prod_lo, prod_hi)
+
+A range selects files with ``out_lo <= q < out_hi`` and
+``prod_lo <= p < prod_hi``; ``prod_hi == 0`` means "all producers".
+Coalescing emits one multi-``q`` range with all producers; skew splitting
+emits several single-``q`` ranges with disjoint producer subranges.
+
+Correctness invariants the rules preserve:
+
+- every (p, q) file is read by EXACTLY one new task (union = original);
+- coalesced groups are unions of whole hash buckets, so key groups stay
+  co-located (safe under final aggregation and co-partitioned joins);
+- skew splits carve a single bucket by producer, which is only applied
+  where the consumer is row-wise unionable over that input (the join
+  probe side — the replanner enforces placement, not these functions).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+ReadRange = Tuple[int, int, int, int]
+Layout = List[List[ReadRange]]
+
+ALL_PRODUCERS = (0, 0)
+
+
+def _median(xs: Sequence[int]) -> float:
+    s = sorted(xs)
+    n = len(s)
+    if n == 0:
+        return 0.0
+    mid = n // 2
+    if n % 2:
+        return float(s[mid])
+    return (s[mid - 1] + s[mid]) / 2.0
+
+
+def plan_shuffle_reads(
+    bytes_per_partition: Sequence[int],
+    conf,
+    producer_bytes: Optional[Sequence[Sequence[int]]] = None,
+    allow_skew: bool = True,
+    skew_bytes: Optional[Sequence[int]] = None,
+) -> Optional[Layout]:
+    """Plan a reader layout from the observed per-``q`` byte histogram.
+
+    ``producer_bytes[q][p]`` (when available) gives the per-producer
+    breakdown used to place skew split points; without it skewed
+    partitions are left whole. ``allow_skew`` lets the caller veto
+    splitting when the consumer cannot union sub-reads (e.g. a final
+    aggregation). ``skew_bytes`` is the histogram skew is DETECTED on
+    when it differs from the one being packed: a join coalesces on
+    build+probe combined bytes but must only split on probe-side mass —
+    splitting a bucket whose weight sits on the (replicated) build side
+    would multiply the expensive build work instead of dividing
+    anything. Returns None when the static layout stands.
+    """
+    n = len(bytes_per_partition)
+    if n == 0 or not conf.enabled:
+        return None
+    do_coalesce = conf.coalesce_enabled
+    do_skew = conf.skew_enabled and allow_skew and producer_bytes is not None
+    if not do_coalesce and not do_skew:
+        return None
+    target = conf.target_partition_bytes
+    sb = skew_bytes if skew_bytes is not None else bytes_per_partition
+    med = _median(sb)
+
+    def is_skewed(q: int) -> bool:
+        if not do_skew:
+            return False
+        b = sb[q]
+        if b <= target or b <= conf.skew_factor * med:
+            return False
+        # need at least two producers with data to split anything
+        contrib = [p for p, pb in enumerate(producer_bytes[q]) if pb > 0]
+        return len(contrib) >= 2
+
+    layout: Layout = []
+    group_lo: Optional[int] = None
+    group_bytes = 0
+
+    def flush_group(hi: int) -> None:
+        nonlocal group_lo, group_bytes
+        if group_lo is not None:
+            layout.append([(group_lo, hi, *ALL_PRODUCERS)])
+            group_lo = None
+            group_bytes = 0
+
+    for q in range(n):
+        b = bytes_per_partition[q]
+        if is_skewed(q):
+            flush_group(q)
+            layout.extend(
+                [(q, q + 1, plo, phi)]
+                for plo, phi in _split_producers(producer_bytes[q], target)
+            )
+            continue
+        if group_lo is None:
+            group_lo, group_bytes = q, b
+            continue
+        if do_coalesce and group_bytes + b <= target:
+            group_bytes += b
+            continue
+        flush_group(q)
+        group_lo, group_bytes = q, b
+    flush_group(n)
+
+    if layout_is_identity(layout, n):
+        return None
+    return layout
+
+
+def _split_producers(per_producer: Sequence[int],
+                     target: int) -> List[Tuple[int, int]]:
+    """Contiguous producer subranges each near ``target`` bytes. Always
+    returns >= 2 ranges (callers only split genuinely skewed partitions)
+    and covers every producer index exactly once — trailing producers
+    with zero bytes ride in the last range."""
+    n = len(per_producer)
+    total = sum(per_producer)
+    # aim for the fewest chunks that bring each under target, bounded by
+    # the number of contributing producers (a file is the atomic unit)
+    contributing = sum(1 for b in per_producer if b > 0)
+    want = min(max(2, -(-total // target)), max(contributing, 2))
+    per_chunk = total / want
+    out: List[Tuple[int, int]] = []
+    lo = 0
+    acc = 0
+    for p in range(n):
+        acc += per_producer[p]
+        if acc >= per_chunk and p + 1 < n and len(out) < want - 1:
+            out.append((lo, p + 1))
+            lo = p + 1
+            acc = 0
+    out.append((lo, n))
+    if len(out) == 1:
+        # the mass sits on the last producer so no cut was placed (e.g.
+        # [1, 0, 0, 1000]): cut before the last contributing producer —
+        # callers rely on >= 2 ranges, and a single all-producer range
+        # would masquerade as a split (version bump, hash-partitioning
+        # downgrade) while splitting nothing
+        last = max(p for p, b in enumerate(per_producer) if b > 0)
+        out = [(0, last), (last, n)]
+    return out
+
+
+def layout_is_identity(layout: Layout, n_partitions: int) -> bool:
+    """True when the layout reproduces the static one-task-per-``q``,
+    all-producers mapping."""
+    if len(layout) != n_partitions:
+        return False
+    for i, ranges in enumerate(layout):
+        if ranges != [(i, i + 1, *ALL_PRODUCERS)]:
+            return False
+    return True
+
+
+def should_broadcast(total_bytes: int, conf) -> bool:
+    """Join demotion gate: a fully-observed side under the threshold is
+    cheap enough to hand every consumer task whole."""
+    return conf.broadcast_enabled and \
+        0 <= total_bytes < conf.broadcast_threshold_bytes
+
+
+def layout_has_splits(layout: Layout) -> bool:
+    return any(r[3] != 0 for ranges in layout for r in ranges)
+
+
+def describe_layout(n_before: int, layout: Layout) -> str:
+    """Human-readable decision summary for EXPLAIN ANALYZE annotations,
+    trace spans, and scheduler logs: "coalesced 32->4", "split 1 skewed
+    partition into 3", or both comma-joined."""
+    n_after = len(layout)
+    split_qs = sorted({r[0] for ranges in layout for r in ranges
+                       if r[3] != 0})
+    parts = []
+    n_split_tasks = sum(
+        1 for ranges in layout for r in ranges if r[3] != 0)
+    n_plain = n_after - n_split_tasks
+    n_unsplit_before = n_before - len(split_qs)
+    if n_plain != n_unsplit_before or (not split_qs and n_after != n_before):
+        parts.append(f"coalesced {n_unsplit_before}→{n_plain}"
+                     if split_qs else f"coalesced {n_before}→{n_after}")
+    if split_qs:
+        qs = ",".join(str(q) for q in split_qs)
+        parts.append(f"split skewed partition{'s' if len(split_qs) > 1 else ''}"
+                     f" [{qs}] into {n_split_tasks} reads")
+    return ", ".join(parts) if parts else "unchanged"

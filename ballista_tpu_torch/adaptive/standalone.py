@@ -1,0 +1,207 @@
+"""Standalone (single-process) adaptive execution.
+
+The port of the JAX package's ``adaptive/standalone.py``. The pipeline
+breakers play the role stage boundaries play in a cluster: a
+``RepartitionExec`` materializes its whole input before any consumer
+partition runs, which is exactly the moment real per-partition sizes
+exist and nothing downstream has started. ``apply_adaptive_rules`` walks
+a planned physical tree bottom-up, materializes each repartition it can
+act on, and rewrites:
+
+- **join demotion**: a co-partitioned ``JoinExec`` whose observed build
+  side lands under ``broadcast_threshold_bytes`` becomes a merged
+  (broadcast-build) join and the probe side's repartition is DROPPED —
+  the probe subtree streams straight into the join;
+- **coalescing / skew**: otherwise both sides' observed per-bucket
+  histograms drive ``plan_shuffle_reads``; readers are wrapped in
+  :class:`AdaptiveShuffleReadExec` (source fragments play the role
+  shuffle producers play in a cluster);
+- a repartition outside any join (shuffled aggregation, user
+  ``.repartition()``) gets coalescing only.
+
+Sizes are estimated as rows x schema row width from the port's own
+``DataType.device_dtype()``, whose widths are the JAX package's, so both
+packages make the same decisions on the same data. Row counts are on
+the host already after ``_materialize_parts`` (no extra device reads).
+A rule that fails raises: there is no fallback to the static plan.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Iterator, List
+
+from ..columnar import ColumnBatch
+from ..observability import trace_event
+from ..physical.base import Partitioning, PhysicalPlan, SchemaLeaf
+from .config import AdaptiveConfig
+from .rules import (
+    describe_layout,
+    layout_has_splits,
+    plan_shuffle_reads,
+    should_broadcast,
+)
+
+log = logging.getLogger("ballista.adaptive")
+
+
+def _row_bytes(schema) -> int:
+    # fixed-size-list columns hold ``length`` elements per row
+    return max(
+        sum(
+            f.dtype.device_dtype().itemsize
+            * (getattr(f.dtype, "length", 0) or 1)
+            for f in schema.fields
+        ),
+        1,
+    )
+
+
+class AdaptiveShuffleReadExec(PhysicalPlan):
+    """Reads a materialized ``RepartitionExec`` through an adaptive
+    layout (see adaptive/rules.py): output partition i yields the
+    buckets/fragment-ranges ``layout[i]`` selects."""
+
+    def __init__(self, repart, layout, note: str):
+        self.repart = repart
+        self.layout = [[tuple(r) for r in ranges] for ranges in layout]
+        self.note = note
+
+    def _signature_parts(self) -> tuple:
+        return (self.note, tuple(tuple(r) for r in self.layout),
+                self.output_schema())
+
+    def _detach(self) -> None:
+        super()._detach()
+        self.repart = SchemaLeaf(self.repart.output_schema())
+
+    def output_schema(self):
+        return self.repart.output_schema()
+
+    def output_partitioning(self) -> Partitioning:
+        base = self.repart.output_partitioning()
+        n = len(self.layout)
+        # unions of whole hash buckets keep the hash property; fragment
+        # splits break it
+        if base.kind == "hash" and not layout_has_splits(self.layout):
+            return Partitioning("hash", n, base.hash_columns)
+        return Partitioning("unknown", n)
+
+    def children(self) -> List[PhysicalPlan]:
+        return [self.repart]
+
+    def with_new_children(self, children):
+        return AdaptiveShuffleReadExec(children[0], self.layout, self.note)
+
+    def execute(self, partition: int) -> Iterator[ColumnBatch]:
+        for olo, ohi, flo, fhi in self.layout[partition]:
+            for q in range(olo, ohi):
+                if fhi == 0:
+                    yield from self.repart.execute(q)
+                else:
+                    yield from self.repart.execute_fragments(q, flo, fhi)
+
+    def display(self) -> str:
+        return f"AdaptiveShuffleReadExec [adaptive: {self.note}]"
+
+
+def apply_adaptive_rules(phys: PhysicalPlan,
+                         conf: AdaptiveConfig) -> PhysicalPlan:
+    """Rewrite a planned standalone physical tree using observed
+    repartition histograms. Materializes the repartitions it touches
+    (work their consumers would do anyway — the parts are shared with
+    execution). Identity when no rule fires."""
+    if not conf.enabled:
+        return phys
+    return _transform(phys, conf)
+
+
+def _transform(node: PhysicalPlan, conf: AdaptiveConfig) -> PhysicalPlan:
+    from ..physical.join import JoinExec
+    from ..physical.operators import RepartitionExec
+
+    if (isinstance(node, JoinExec) and node.partitioned
+            and isinstance(node.build, RepartitionExec)
+            and isinstance(node.probe, RepartitionExec)):
+        # adapt below the shuffle boundary first (deeper joins decide
+        # before this one's materialization freezes them)
+        build = node.build.with_new_children(
+            [_transform(node.build.child, conf)])
+        probe = node.probe.with_new_children(
+            [_transform(node.probe.child, conf)])
+        join = node.with_new_children([build, probe])
+        return _adapt_partitioned_join(join, conf)
+    kids = node.children()
+    if kids:
+        new_kids = [_transform(c, conf) for c in kids]
+        if not all(a is b for a, b in zip(kids, new_kids)):
+            node = node.with_new_children(new_kids)
+    if isinstance(node, RepartitionExec):
+        return _adapt_lone_repartition(node, conf)
+    return node
+
+
+def _observed_bytes(repart):
+    rb = _row_bytes(repart.output_schema())
+    totals, per_frag = repart.observed_partition_rows()
+    return ([r * rb for r in totals],
+            [[r * rb for r in row] for row in per_frag])
+
+
+def _adapt_partitioned_join(join, conf: AdaptiveConfig):
+    from ..physical.join import JoinExec
+
+    build_bytes, _ = _observed_bytes(join.build)
+    if should_broadcast(sum(build_bytes), conf):
+        total = sum(build_bytes)
+        note = (f"broadcast build ({total / 1e6:.2f} MB < "
+                f"{conf.broadcast_threshold_bytes / 1e6:.0f} MB threshold)")
+        trace_event("adaptive.standalone", rule="broadcast",
+                    decision=note, build_bytes=total)
+        log.info("adaptive (standalone): %s", note)
+        # the probe's repartition is dropped entirely: its child streams
+        # into the merged join untouched; the build keeps its (already
+        # materialized) repartition and is concatenated across buckets
+        return JoinExec(join.build, join.probe.child, join.on, join.how,
+                        null_aware=join.null_aware, partitioned=False,
+                        device=join.device, adaptive_note=note)
+    if not (conf.coalesce_enabled or conf.skew_enabled):
+        return join
+    probe_bytes, probe_frag = _observed_bytes(join.probe)
+    combined = [b + p for b, p in zip(build_bytes, probe_bytes)]
+    # coalesce on combined bytes (what a reader task holds), but detect
+    # skew on probe mass only — split sub-tasks re-read the whole build
+    # bucket, so build-heavy buckets must not split
+    layout = plan_shuffle_reads(combined, conf, producer_bytes=probe_frag,
+                                allow_skew=True, skew_bytes=probe_bytes)
+    if layout is None:
+        return join
+    build_layout = [[(olo, ohi, 0, 0) for (olo, ohi, _, _) in ranges]
+                    for ranges in layout]
+    note = describe_layout(join.build.num_partitions, layout)
+    trace_event("adaptive.standalone", rule="coalesce+skew", decision=note,
+                buckets_before=join.build.num_partitions,
+                buckets_after=len(layout))
+    log.info("adaptive (standalone): %s", note)
+    return join.with_new_children([
+        AdaptiveShuffleReadExec(join.build, build_layout, note),
+        AdaptiveShuffleReadExec(join.probe, layout, note),
+    ])
+
+
+def _adapt_lone_repartition(repart, conf: AdaptiveConfig):
+    """A repartition outside a co-partitioned join (shuffled
+    aggregation, explicit ``.repartition()``): whole-bucket coalescing
+    only — sub-bucket splits would break downstream grouping."""
+    if not conf.coalesce_enabled:
+        return repart
+    bytes_q, _ = _observed_bytes(repart)
+    layout = plan_shuffle_reads(bytes_q, conf, allow_skew=False)
+    if layout is None:
+        return repart
+    note = describe_layout(repart.num_partitions, layout)
+    trace_event("adaptive.standalone", rule="coalesce", decision=note,
+                buckets_before=repart.num_partitions,
+                buckets_after=len(layout))
+    log.info("adaptive (standalone): %s", note)
+    return AdaptiveShuffleReadExec(repart, layout, note)

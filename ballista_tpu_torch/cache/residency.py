@@ -20,8 +20,9 @@ text sources add every file of the table, see ``io/text.py``). A
 rewritten or appended file mints a different key; the stale entry
 simply stops being reachable and ages out of the LRU.
 
-Memory is governed by :class:`DeviceMemoryGovernor`: charge on insert,
-refuse past the watermark, evict coldest first — NEVER block.
+Memory is governed by :class:`DeviceMemoryGovernor`, one budget per
+device: charge on insert, refuse past the watermark, evict the same
+device's coldest entries first — NEVER block.
 A refused fill degrades to the plain streaming scan (the batches are
 yielded either way); eviction under pressure degrades a later query to
 re-ingest, never fails it.
@@ -33,7 +34,7 @@ budget refusal) is aborted and released, because serving a truncated
 partition would be a correctness bug, not a cache miss.
 
 Knobs (read at call time): ``BALLISTA_TABLE_CACHE`` (default on),
-``BALLISTA_TABLE_CACHE_BUDGET_MB`` (default 512),
+``BALLISTA_TABLE_CACHE_BUDGET_MB`` (default 512, per device),
 ``BALLISTA_TABLE_CACHE_WATERMARK`` (default 0.9).
 """
 
@@ -55,8 +56,8 @@ def table_cache_enabled() -> bool:
 
 
 def table_cache_budget_bytes() -> int:
-    """``BALLISTA_TABLE_CACHE_BUDGET_MB``: device-byte budget for
-    pinned scan outputs (default 512 MiB)."""
+    """``BALLISTA_TABLE_CACHE_BUDGET_MB``: byte budget for pinned scan
+    outputs on each device (default 512 MiB)."""
     try:
         mb = int(os.environ.get("BALLISTA_TABLE_CACHE_BUDGET_MB", "")
                  or 512)
@@ -117,63 +118,92 @@ def batch_device_bytes(batch) -> int:
 
 
 class DeviceMemoryGovernor:
-    """Process-wide accountant for device bytes pinned by the table
-    cache. Charge/release pairs are locked (a lost update leaks budget
-    forever); budget/watermark read the environment at call time so
-    one instance serves any knob configuration. ``try_charge`` NEVER
-    blocks: a refusal means the caller skips pinning (or evicts and
-    retries)."""
+    """Accountant for the bytes the table cache pins, one budget per
+    device: the JAX package's process has one device, so its budget is
+    that device's; the port's process may hold card and CPU contexts,
+    and filling one must not evict the other's entries. Charge/release
+    pairs are locked (a lost update leaks budget forever);
+    budget/watermark read the environment at call time so one instance
+    serves any knob configuration. ``try_charge`` NEVER blocks: a
+    refusal means the caller skips pinning (or evicts and retries).
+    ``resident_bytes``, ``peak_resident_bytes`` and ``denials`` are the
+    process totals; ``stats()["per_device"]`` breaks them down."""
 
     def __init__(self):
         self._lock = threading.Lock()
-        self.resident_bytes = 0
+        self._resident: dict = {}
+        self._peak: dict = {}
+        self._denials: dict = {}
         self.peak_resident_bytes = 0
-        self.denials = 0
 
-    def try_charge(self, nbytes: int) -> bool:
+    @property
+    def resident_bytes(self) -> int:
+        with self._lock:
+            return sum(self._resident.values())
+
+    @property
+    def denials(self) -> int:
+        with self._lock:
+            return sum(self._denials.values())
+
+    def try_charge(self, nbytes: int, dev: str) -> bool:
+        """Charge ``nbytes`` to device ``dev`` (``str`` of a torch
+        device), or refuse past its watermark."""
         n = int(nbytes)
         if n <= 0:
             return True
         limit = int(table_cache_budget_bytes() * table_cache_watermark())
         with self._lock:
-            if self.resident_bytes + n > limit:
-                self.denials += 1
+            held = self._resident.get(dev, 0)
+            if held + n > limit:
+                self._denials[dev] = self._denials.get(dev, 0) + 1
                 return False
-            self.resident_bytes += n
-            if self.resident_bytes > self.peak_resident_bytes:
-                self.peak_resident_bytes = self.resident_bytes
+            self._resident[dev] = held + n
+            self._peak[dev] = max(self._peak.get(dev, 0), held + n)
+            self.peak_resident_bytes = max(self.peak_resident_bytes,
+                                           sum(self._resident.values()))
         return True
 
-    def release(self, nbytes: int) -> None:
+    def release(self, nbytes: int, dev: str) -> None:
         n = int(nbytes)
         if n <= 0:
             return
         with self._lock:
-            self.resident_bytes = max(0, self.resident_bytes - n)
+            self._resident[dev] = max(0, self._resident.get(dev, 0) - n)
 
     def stats(self) -> dict:
         with self._lock:
+            devs = sorted(set(self._resident) | set(self._peak)
+                          | set(self._denials))
             return {
-                "resident_bytes": self.resident_bytes,
+                "resident_bytes": sum(self._resident.values()),
                 "peak_resident_bytes": self.peak_resident_bytes,
-                "denials": self.denials,
+                "denials": sum(self._denials.values()),
                 "budget_bytes": table_cache_budget_bytes(),
+                "per_device": {d: {
+                    "resident_bytes": self._resident.get(d, 0),
+                    "peak_resident_bytes": self._peak.get(d, 0),
+                    "denials": self._denials.get(d, 0),
+                } for d in devs},
             }
 
     def reset_stats(self) -> None:
-        """Re-baseline the peak (bench phases, tests);
-        ``resident_bytes`` is live accounting and is NOT reset."""
+        """Re-baseline the peaks (bench phases, tests); resident bytes
+        are live accounting and are NOT reset."""
         with self._lock:
-            self.peak_resident_bytes = self.resident_bytes
-            self.denials = 0
+            self._peak = dict(self._resident)
+            self.peak_resident_bytes = sum(self._resident.values())
+            self._denials = {}
 
 
 class _Entry:
-    __slots__ = ("batches", "nbytes", "hits", "filled_at", "last_access")
+    __slots__ = ("batches", "nbytes", "device", "hits", "filled_at",
+                 "last_access")
 
-    def __init__(self, batches: List, nbytes: int):
+    def __init__(self, batches: List, nbytes: int, device: str):
         self.batches = batches
         self.nbytes = nbytes
+        self.device = device
         self.hits = 0
         self.filled_at = time.time()
         self.last_access = self.filled_at
@@ -191,6 +221,7 @@ class _Filler:
         self._key = key
         self._batches: List = []
         self._charged = 0
+        self._device = None  # str of the first batch's device
         self._dead = False
         self._done = False
 
@@ -198,7 +229,9 @@ class _Filler:
         if self._dead:
             return False
         n = batch_device_bytes(batch)
-        if not self._cache._charge_evicting(n):
+        if self._device is None:
+            self._device = str(batch.device)
+        if not self._cache._charge_evicting(n, self._device):
             self.abort()
             return False
         self._charged += n
@@ -211,7 +244,8 @@ class _Filler:
         if self._dead or self._done:
             return False
         self._done = True
-        return self._cache._publish(self._key, self._batches, self._charged)
+        return self._cache._publish(self._key, self._batches, self._charged,
+                                    self._device)
 
     def abort(self) -> None:
         """Release whatever was charged; the entry is never published.
@@ -219,7 +253,7 @@ class _Filler:
         if self._done or self._dead:
             return
         self._dead = True
-        self._cache._gov.release(self._charged)
+        self._cache._gov.release(self._charged, self._device)
         self._batches = []
         self._charged = 0
 
@@ -291,30 +325,34 @@ class DeviceTableCache:
                 return None
         return _Filler(self, key)
 
-    def _charge_evicting(self, nbytes: int) -> bool:
-        """Charge, evicting coldest entries while the governor refuses.
-        Returns False once nothing is left to evict. Never blocks."""
-        while not self._gov.try_charge(nbytes):
+    def _charge_evicting(self, nbytes: int, device: str) -> bool:
+        """Charge ``device``'s budget, evicting that device's coldest
+        entries while the governor refuses. Returns False once the
+        device has nothing left to evict. Never blocks."""
+        while not self._gov.try_charge(nbytes, device):
             with self._lock:
-                if not self._entries:
+                victim = next((k for k, e in self._entries.items()
+                               if e.device == device), None)
+                if victim is None:
                     self.refusals += 1
                     return False
-                _, e = self._entries.popitem(last=False)
+                e = self._entries.pop(victim)
                 self.evictions += 1
-            self._gov.release(e.nbytes)
+            self._gov.release(e.nbytes, device)
         return True
 
-    def _publish(self, key: tuple, batches: List, nbytes: int) -> bool:
+    def _publish(self, key: tuple, batches: List, nbytes: int,
+                 device: str) -> bool:
         with self._lock:
             if key in self._entries:
                 # a concurrent scan won the fill race: keep theirs
                 dup = True
             else:
-                self._entries[key] = _Entry(batches, nbytes)
+                self._entries[key] = _Entry(batches, nbytes, device)
                 self.fills += 1
                 dup = False
         if dup:
-            self._gov.release(nbytes)
+            self._gov.release(nbytes, device)
         return not dup
 
     def invalidate(self, key: Optional[tuple] = None) -> None:
@@ -330,7 +368,7 @@ class DeviceTableCache:
                 dropped = list(self._entries.values())
                 self._entries.clear()
         for e in dropped:
-            self._gov.release(e.nbytes)
+            self._gov.release(e.nbytes, e.device)
 
     def stats(self) -> dict:
         with self._lock:

@@ -8,11 +8,11 @@ batches there, and no code path moves to another device on its own.
 A collect runs as the JAX package's standalone collect does: fusion,
 the opt-in result cache, every scan primed on the ingest pool before the
 first pull (``ingest.prime_plan``; scans serve from the device table
-cache when they can), one cancel token bound around it
-(``ctx.cancel()`` from another thread), and ``cancel_plan`` in a
-``finally``. Remote (cluster) mode, the standalone adaptive pass,
-prewarming, profiling, EXPLAIN and the latency ledger are not ported
-yet.
+cache when they can), the standalone adaptive pass over the primed tree
+(``adaptive/standalone.py``, once per kept plan, then re-fused), one
+cancel token bound around it (``ctx.cancel()`` from another thread), and
+``cancel_plan`` in a ``finally``. Remote (cluster) mode, prewarming,
+profiling, EXPLAIN and the latency ledger are not ported yet.
 """
 
 from __future__ import annotations
@@ -240,30 +240,64 @@ class BallistaContext:
         # without executing
         rc_key = None
         if _results.result_cache_enabled(self.settings):
-            rc_key = _results.plan_key(phys, self.settings, self.device)
+            # keyed on the plan as planned: an adapted plan is a function
+            # of the planned one and the (signed) files it read
+            rc_key = _results.plan_key(getattr(phys, "_planned", phys),
+                                       self.settings, self.device)
             cached = _results.process_result_cache().lookup(rc_key)
             if cached is not None:
                 self._annotate_cache_hits(result_hit=True)
                 return cached, phys
-        nodes = _plan_nodes(phys)
-        for node in nodes:  # report THIS run's metrics
+        for node in _plan_nodes(phys):  # report THIS run's metrics
             node.metrics().reset()
         # parallel ingest: start parse+H2D of every leaf scan now, so
-        # independent tables overlap each other; whatever an early exit
-        # leaves unconsumed is cancelled, never leaked
+        # independent tables overlap each other and the adaptive pass's
+        # repartition materializations consume running streams. Scan
+        # instances survive the adaptive rewrite (with_new_children
+        # keeps leaves), so the primed handles are consumed by the
+        # adapted tree; whatever an early exit leaves unconsumed is
+        # cancelled, never leaked
         prime_plan(phys)
         try:
+            phys = self._apply_adaptive(phys)
             data = collect_physical(phys)
         finally:
             cancel_plan(phys)
-            # join builds and repartitioned batches; scan batches the
-            # table cache pins stay with the cache
-            for node in nodes:
+            # join builds and repartitioned batches of the tree that ran;
+            # scan batches the table cache pins stay with the cache
+            for node in _plan_nodes(phys):
                 node.release()
         if rc_key is not None:
             _results.process_result_cache().fill(rc_key, data)
         self._annotate_cache_hits(phys)
         return data, phys
+
+    def _apply_adaptive(self, phys):
+        """Standalone adaptive execution: rewrite the planned tree from
+        observed repartition histograms (``adaptive/standalone.py``).
+        Runs once per plan — a kept DataFrame keeps the adapted tree,
+        whose layouts stay frozen — then re-fuses what the rewrite
+        restructured (a demoted join's probe chain is left unfused, so
+        the join keeps the programs it has)."""
+        if getattr(phys, "_adaptive_applied", False):
+            return phys
+        from .adaptive import AdaptiveConfig
+        from .adaptive.standalone import apply_adaptive_rules
+        from .physical.fusion import fuse_plan, fusion_enabled
+
+        planned = phys
+        conf = AdaptiveConfig.from_settings(self.settings)
+        if conf.enabled:
+            phys = apply_adaptive_rules(phys, conf)
+            if fusion_enabled():
+                phys = fuse_plan(phys, fuse_joins=False)
+                # without the marker the next collect's maybe_fuse would
+                # fuse the demoted join's probe chain after all
+                phys._fusion_applied = True
+        if phys is not planned:
+            phys._planned = planned
+        phys._adaptive_applied = True
+        return phys
 
     def _annotate_cache_hits(self, phys=None, result_hit=False) -> None:
         """Warm-path attribution of this context (``cache_hits``): the

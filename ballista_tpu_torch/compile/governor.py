@@ -24,9 +24,11 @@ What an entry does with a call depends on the device of its tensors:
   the graph's static input buffers, replays the graph with a single
   launch and hands out copies of the static outputs, so results stay
   valid after the next replay overwrites them. Graphs share one memory
-  pool per card: with outputs copied out right after each replay and
-  every replay on one stream, no graph reads pool memory another graph
-  wrote.
+  pool per card: with outputs copied out right after each replay, every
+  replay on one stream and one replay queued at a time (its copy-in,
+  replay and copies out under one process-wide lock, since partitions
+  replay from ingest-pool threads), no graph reads pool memory another
+  graph wrote.
 
 ``CAPTURE`` declares which namespaces capture; the others run eagerly on
 a card too. A capture that fails raises ``CaptureError``; it never falls
@@ -285,6 +287,11 @@ _POOL_LOCK = threading.Lock()
 # one warm-up or capture at a time on the shared side streams (reentrant:
 # a program's body may reach another governed entry's first call)
 _CAPTURE_LOCK = threading.RLock()
+# one replay at a time, from its copy-in to its copies out: graphs share
+# their card's pool, so one graph's internals may lie where another's
+# static outputs are; replays queued from two threads (partitions on the
+# ingest pool) must not interleave between a replay and its copies out
+_REPLAY_LOCK = threading.Lock()
 
 
 def _pool_and_side_stream(device: torch.device):
@@ -339,7 +346,7 @@ class _GraphProgram:
     its constants arena and its replay hooks."""
 
     __slots__ = ("graph", "static_in", "static_out", "out_spec", "alias",
-                 "passthrough", "arena", "hooks", "lock", "calls")
+                 "passthrough", "arena", "hooks", "calls")
 
     @classmethod
     def capture(cls, gf: "GovernedFunction", args: tuple,
@@ -416,7 +423,6 @@ class _GraphProgram:
         prog.alias = [_input_index(t, static_in) for t in out_leaves]
         prog.passthrough = not hooks and all(
             i is not None for i in prog.alias)
-        prog.lock = threading.Lock()
         prog.calls = 1
         return out, prog, secs
 
@@ -429,7 +435,7 @@ class _GraphProgram:
             if donate is not None:
                 donate.donate()
             return _unflatten(self.out_spec, iter(outs))
-        with self.lock:
+        with _REPLAY_LOCK:
             self.calls += 1
             for s, t in zip(self.static_in, leaves):
                 s.copy_(t)

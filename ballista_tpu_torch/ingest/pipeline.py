@@ -263,7 +263,8 @@ def iter_partitions(plan, partitions) -> "Iterable":
     """Yield ``plan.execute(p)``'s batches for each partition IN ORDER,
     with the partitions produced concurrently on the ingest pool — the
     pipelined replacement for the serial multi-partition pull loop (the
-    collect). Each partition subtree runs whole on its producer thread
+    collect, ``MergeExec``, a repartition's input, a merged join's
+    build). Each partition subtree runs whole on its producer thread
     (scan, joins, partial aggregation), buffered behind the usual
     bounded queue. Yield order is partition order then batch order,
     identical to the serial loop — byte-identical results.

@@ -5,12 +5,21 @@ native C++ scanner only (the machines the port targets have no pandas), so
 quoted CSV, and types the scanner has no code for, raise.
 
 Partitioning: a directory scans one file per partition; a single file is
-one partition, chunked into batches of ``batch_capacity`` rows.
+one partition, chunked into batches of ``batch_capacity`` rows. A file
+larger than ``STREAM_CHUNK_BYTES`` (``BALLISTA_SCAN_CHUNK_BYTES``, 1 GiB,
+read at import as in the JAX package) is parsed in byte-range chunks,
+each emitting its batches as soon as it is parsed, so RAM stays bounded
+(a projection with string columns first reads them from the whole file
+for the table-wide dictionaries); such a file bypasses the table cache
+(``residency_key`` is None), since its output would evict the whole
+cache for one table.
 
 Dictionaries: a single-file table adopts the file's sorted dictionary; a
-multi-file table builds one sorted dictionary per string column over ALL
-files at first use (one native pre-pass), so codes are ordinal and
-comparable across every batch of the table.
+multi-file table, and any streamed file, builds one sorted dictionary per
+string column over ALL files at first use (one native pre-pass, range by
+range over a streamed file), so codes are ordinal and comparable across
+every batch of the table, and every chunk's batches carry the same
+``Dictionary`` object (graph signatures key on dictionary identity).
 
 Warm path: ``scan`` goes through the device table cache
 (``cache/residency.py``), keyed by the partition file, the projection,
@@ -25,9 +34,7 @@ since equal file sets give equal dictionaries.
 Timing: the parse and the upload of each batch are ``ingest.phase``
 blocks (``elapsed_parse``/``elapsed_h2d`` on the scan's metrics).
 
-Not ported yet: the byte-range streaming of files above 1 GB (each file is
-parsed whole here, so no file bypasses the cache as the JAX package's
-streamed files do) and the dictionary registry shared between sources.
+Not ported yet: the dictionary registry shared between sources.
 """
 
 from __future__ import annotations
@@ -49,6 +56,16 @@ from ..ingest.phases import phase
 from ..lifecycle import check_cancel
 from ..logical import TableSource
 from ..observability.memory import track_host_bytes
+
+# Files larger than this stream through the native scanner in byte-range
+# chunks (bounded RAM at any scale factor) instead of one whole-file
+# parse. Streaming pays one extra pre-pass over the file to build
+# table-wide utf8 dictionaries, so the threshold sits where whole-file
+# RAM hurts (~1GB of text -> a few GB resident). Read at import, as the
+# JAX package reads it; set the module attribute to change it later.
+STREAM_CHUNK_BYTES = int(
+    os.environ.get("BALLISTA_SCAN_CHUNK_BYTES", str(1 << 30))
+)
 
 
 def _list_files(path: str, suffixes=(".tbl", ".csv", ".txt", ".dat")) -> List[str]:
@@ -122,7 +139,10 @@ class DelimitedSource(TableSource):
                       projection=None) -> Optional[tuple]:
         """The table cache's key for one partition scan: the partition
         file, the projection, the format, the batch capacity, the device
-        and every file of the table (the dictionaries' inputs)."""
+        and every file of the table (the dictionaries' inputs). None for
+        a streamed file: it bypasses the cache."""
+        if self._streams(partition):
+            return None
         return residency.scan_key(
             "tbl" if self._delim == "|" else "csv",
             self._files[partition], partition, projection,
@@ -147,9 +167,18 @@ class DelimitedSource(TableSource):
 
     # -- scanning -----------------------------------------------------------
 
+    def _streams(self, partition: int) -> bool:
+        """True when the partition's file is parsed in byte ranges."""
+        try:
+            size = os.path.getsize(self._files[partition])
+        except OSError:
+            return False
+        return size > STREAM_CHUNK_BYTES
+
     def _table_dictionaries(self, colnames: List[str]) -> Dict[str, Dictionary]:
         """Table-wide sorted dictionaries for several utf8 columns, built
-        by ONE native pre-pass over every file (only the values are
+        by ONE native pre-pass over every file, range by range over a
+        file larger than ``STREAM_CHUNK_BYTES`` (only the values are
         kept)."""
         from . import native
 
@@ -158,10 +187,17 @@ class DelimitedSource(TableSource):
             if need:
                 uniq: Dict[str, List[np.ndarray]] = {n: [] for n in need}
                 for f in self._files:
-                    _, _, fd, _ = native.scan_file(
-                        f, self._schema, need, self._delim, self._header)
-                    for n in need:
-                        uniq[n].append(np.asarray(fd[n]).astype(str))
+                    size = os.path.getsize(f)
+                    streamed = size > STREAM_CHUNK_BYTES
+                    for off in (range(0, size, STREAM_CHUNK_BYTES)
+                                if streamed else [0]):
+                        _, _, fd, _ = native.scan_file(
+                            f, self._schema, need, self._delim,
+                            self._header, offset=off,
+                            max_bytes=STREAM_CHUNK_BYTES if streamed
+                            else -1)
+                        for n in need:
+                            uniq[n].append(np.asarray(fd[n]).astype(str))
                 for n in need:
                     vals = (np.unique(np.concatenate(uniq[n]))
                             if uniq[n] else np.zeros(0, dtype=str))
@@ -212,6 +248,10 @@ class DelimitedSource(TableSource):
         names = list(projection if projection is not None
                      else self._schema.names())
         sub_schema = self._schema.project(names)
+        if self._streams(partition):
+            yield from self._scan_native_streaming(partition, names,
+                                                   sub_schema)
+            return
         with phase("parse", path=self._files[partition]):
             n, arrays, fdicts, valids = native.scan_file(
                 self._files[partition], self._schema, names, self._delim,
@@ -238,11 +278,53 @@ class DelimitedSource(TableSource):
                         np.int32)
         yield from self._emit_batches(sub_schema, n, arrays, dicts, valids)
 
-    def _emit_batches(self, sub_schema, n, arrays, dicts, valids=None):
+    def _scan_native_streaming(self, partition: int, names, sub_schema):
+        """Parse one partition file in byte-range chunks (adjacent ranges
+        partition the rows exactly), remap each range's utf8 codes onto
+        the table-wide dictionaries (one shared pre-pass) and emit each
+        range's batches as soon as it is parsed. Peak RAM is
+        O(STREAM_CHUNK_BYTES)."""
+        from . import native
+
+        path = self._files[partition]
+        size = os.path.getsize(path)
+        chunk = STREAM_CHUNK_BYTES
+        utf8 = [m for m in names
+                if self._schema.field(m).dtype.kind == "utf8"]
+        with phase("parse", path=path, prepass="dicts"):
+            dicts = self._table_dictionaries(utf8)
+        off = 0
+        emitted = False
+        while off < size:
+            with phase("parse", path=path, offset=off):
+                n, arrays, fdicts, valids = native.scan_file(
+                    path, self._schema, names, self._delim, self._header,
+                    offset=off, max_bytes=chunk)
+                off += chunk
+                if n == 0:
+                    continue
+                for m in utf8:
+                    arrays[m] = dicts[m].positions_of(
+                        fdicts[m])[arrays[m]].astype(np.int32)
+            # a range's tail batch is emitted partial, on the ladder
+            yield from self._emit_batches(sub_schema, n, arrays, dicts,
+                                          valids, force_emit=False)
+            emitted = True
+        if not emitted:  # empty file: one empty batch keeps contracts
+            yield from self._emit_batches(sub_schema, 0, {
+                m: np.zeros(0, self._schema.field(m).dtype.device_dtype())
+                for m in names}, dicts, None)
+
+    def _emit_batches(self, sub_schema, n, arrays, dicts, valids=None,
+                      force_emit=True):
         """Fixed-capacity batches on the source's device; at least one
-        (possibly empty) batch. Scan batches enter at ladder capacities.
-        The parse buffers are accounted as host ``batches`` memory until
-        every chunk is uploaded (released on an abandoned scan too)."""
+        (possibly empty) batch unless ``force_emit`` is False (a streamed
+        range with no rows emits none). Scan batches enter at ladder
+        capacities. The parse buffers are accounted as host ``batches``
+        memory until every chunk is uploaded (released on an abandoned
+        scan too)."""
+        if n == 0 and not force_emit:
+            return
         parse_bytes = sum(int(a.nbytes) for a in arrays.values())
         with track_host_bytes("batches", parse_bytes):
             cap = min(self._capacity, bucket_capacity(max(n, 1)))

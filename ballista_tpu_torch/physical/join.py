@@ -1,12 +1,13 @@
 """Join physical operator.
 
 The port of the JAX package's ``physical/join.py``. The build (left)
-child is materialized once and tabled (``kernels/join.py``): a dense
-direct-index table for near-dense integer keys, else a sorted one. Probe
-batches stream through the probe, which appends gathered build columns.
-FK->PK joins (unique build keys) take the no-expansion path; duplicate
-build keys take the expanding probe, whose output capacity grows on
-overflow.
+child is materialized once (a merged join's build partitions produced
+concurrently through ``ingest.iter_partitions``) and tabled
+(``kernels/join.py``): a dense direct-index table for near-dense
+integer keys, else a sorted one. Probe batches stream through the
+probe, which appends gathered build columns. FK->PK joins (unique
+build keys) take the no-expansion path; duplicate build keys take the
+expanding probe, whose output capacity grows on overflow.
 
 Join types: inner, left (preserves the PROBE side — the planner picks
 which logical side becomes the probe accordingly), semi, anti (also the
@@ -86,8 +87,7 @@ class JoinExec(PhysicalPlan):
         self.partitioned = partitioned
         # where an empty hash partition's all-dead build batch is made
         self.device = torch.device(device) if device is not None else None
-        # set when an adaptive rewrite changed this join (EXPLAIN surface;
-        # the port has no adaptive pass yet, fusion carries it over)
+        # set when the adaptive pass rewrote this join (``display``)
         self.adaptive_note = adaptive_note
         # whole-stage fusion: the Filter/Projection chain that used to feed
         # the probe side, applied INSIDE every probe program. When set,
@@ -332,9 +332,13 @@ class JoinExec(PhysicalPlan):
         if self.partitioned:
             batches = list(self.build.execute(partition))
         else:
-            batches = [b for p in range(
-                self.build.output_partitioning().num_partitions)
-                for b in self.build.execute(p)]
+            from ..ingest import iter_partitions
+
+            # the build's partitions produce concurrently on the ingest
+            # pool, in partition order (partition 0 inline)
+            batches = list(iter_partitions(
+                self.build,
+                range(self.build.output_partitioning().num_partitions)))
         if not batches:
             if not self.partitioned or self.device is None:
                 raise ExecutionError("join build side produced no batches")

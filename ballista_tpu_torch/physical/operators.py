@@ -8,12 +8,14 @@ aggregate or join program it feeds. Sort, limit and the repartition's
 per-batch sort and per-partition gather are governed programs under the
 JAX package's namespaces (``sort.run``, ``limit.take``,
 ``repart.sort_by_pid``, ``repart.take``); the repartition's count fetch
-stays between them, on the host.
+stays between them, on the host: one per hash repartition, one per
+batch for round-robin.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -264,8 +266,11 @@ class ProjectionExec(PipelineOp):
 
 
 class MergeExec(PhysicalPlan):
-    """Gather all input partitions into one, in partition order (the
-    serial pull loop)."""
+    """Gather all input partitions into one, in partition order: the
+    child partitions (each a whole scan/join/partial-aggregate subtree)
+    produce concurrently on the ingest pool (``ingest.iter_partitions``;
+    partition 0 inline, so its programs are captured on this thread) —
+    the serial pull loop when the pipeline is gated off."""
 
     def __init__(self, child: PhysicalPlan):
         self.child = child
@@ -285,8 +290,11 @@ class MergeExec(PhysicalPlan):
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         if partition != 0:
             raise ExecutionError("MergeExec has a single output partition")
-        for p in range(self.child.output_partitioning().num_partitions):
-            yield from self.child.execute(p)
+        from ..ingest import iter_partitions
+
+        yield from iter_partitions(
+            self.child,
+            range(self.child.output_partitioning().num_partitions))
 
     def display(self) -> str:
         return "MergeExec"
@@ -414,12 +422,12 @@ class LimitExec(PhysicalPlan):
 class RepartitionExec(PhysicalPlan):
     """Re-partition input into N output partitions by hash or round-robin.
 
-    Single-process: the child's partitions are materialized once, in
-    order and serially, under a per-instance lock (partitions of this
-    operator may run concurrently on the ingest pool,
-    ``ingest.iter_partitions``); each batch is sorted by destination
-    partition once, and output partition p gathers its rows to the
-    front of a batch that fits them."""
+    Single-process: the child's partitions are materialized once, through
+    ``ingest.iter_partitions`` (produced concurrently on the ingest pool,
+    in partition order), under a per-instance lock, since partitions of
+    this operator may also run concurrently; each batch is sorted by
+    destination partition once, and output partition p gathers its rows
+    to the front of a batch that fits them."""
 
     def __init__(self, child: PhysicalPlan, num_partitions: int,
                  hash_exprs: Optional[List[ex.Expr]] = None):
@@ -427,8 +435,12 @@ class RepartitionExec(PhysicalPlan):
         self.num_partitions = num_partitions
         self.hash_exprs = hash_exprs
         self._ev = Evaluator(child.output_schema())
+        self._cache: Optional[List[ColumnBatch]] = None
         self._parts = None
-        self._parts_lock = threading.Lock()
+        # concurrent partition execution (ingest.iter_partitions) must
+        # materialize exactly once; RLock: _materialize_parts calls
+        # _materialize
+        self._mat_lock = threading.RLock()
 
     def _signature_parts(self) -> tuple:
         return (self.num_partitions, fingerprint(self.hash_exprs),
@@ -436,6 +448,7 @@ class RepartitionExec(PhysicalPlan):
 
     def _detach(self) -> None:
         super()._detach()
+        self._cache = None
         self._parts = None  # materialized batches must not be pinned
 
     def with_new_children(self, children):
@@ -454,7 +467,9 @@ class RepartitionExec(PhysicalPlan):
         return [self.child]
 
     def release(self) -> None:
-        self._parts = None
+        with self._mat_lock:
+            self._cache = None
+            self._parts = None
 
     def partition_ids(self, batch: ColumnBatch, row_offset: int):
         """int32 partition id per row."""
@@ -462,16 +477,44 @@ class RepartitionExec(PhysicalPlan):
                                      self.num_partitions, row_offset,
                                      self._ev)
 
+    def _materialize(self) -> List[ColumnBatch]:
+        with self._mat_lock:
+            if self._cache is None:
+                from ..ingest import iter_partitions
+
+                self._cache = list(iter_partitions(
+                    self.child,
+                    range(self.child.output_partitioning()
+                          .num_partitions)))
+            return self._cache
+
     def _materialize_parts(self):
-        """[(batch, perm, host counts)]: every child batch, the stable
-        permutation that orders its live rows by destination partition
-        (dead rows last), and its rows per partition."""
-        with self._parts_lock:
+        """Materialize once and sort each batch by destination partition
+        ONCE: [(batch, perm, host counts)] — every child batch, the
+        stable permutation that orders its live rows by destination
+        partition (dead rows last), and its rows per partition.
+
+        With the ingest pipeline on, a hash repartition defers its host
+        reads: the first batch sorts inline (its program is captured
+        once, on this thread), the rest go out through
+        ``ingest.parallel_map``, and every batch's counts come back in
+        ONE host fetch. Round-robin reads the row offset, so it keeps
+        the serial loop with one fetch per batch, as does
+        ``BALLISTA_PREFETCH_BATCHES=0``."""
+        with self._mat_lock:
             if self._parts is None:
-                self._parts = self._sorted_parts()
+                t0 = time.perf_counter()
+                self._parts = self._sorted_parts(self._materialize())
+                # host seconds of the materialization, wherever it ran
+                # (the adaptive pass or the first consumer partition)
+                self.metrics().add_time("elapsed_materialize",
+                                        time.perf_counter() - t0)
             return self._parts
 
-    def _sorted_parts(self):
+    def _sorted_parts(self, batches: List[ColumnBatch]):
+        from ..ingest import parallel_map, prefetch_batches
+        from ..observability import trace_span
+
         def build():
             tw = self.trace_twin()  # don't pin materialized batches
             n_out = tw.num_partitions
@@ -491,24 +534,68 @@ class RepartitionExec(PhysicalPlan):
             return sort_by_pid
 
         sort_fn = self.governed_jit(("repart.sort_by_pid",), build)
+        if not batches:
+            return []
+        metrics = self.metrics()
+        metrics.add_counter("input_batches", len(batches))
+        if prefetch_batches() > 0 and self.hash_exprs:
+            # the offset is unread by hash partitioning, so batches are
+            # independent
+            zero = torch.zeros((), dtype=torch.int32,
+                               device=batches[0].device)
+            pairs = [sort_fn(batches[0], zero)]
+            pairs += parallel_map(lambda b: sort_fn(b, zero), batches[1:])
+            with trace_span("device.block", site="repart.counts",
+                            n=len(pairs)):
+                counts = torch.stack([c for _, c in pairs]).cpu().numpy()
+            metrics.add_counter("count_fetches")
+            return [(b, perm, counts[i])
+                    for i, (b, (perm, _)) in enumerate(zip(batches, pairs))]
         parts = []
         offset = 0
-        for p in range(self.child.output_partitioning().num_partitions):
-            for batch in self.child.execute(p):
-                off = torch.full((), offset, dtype=torch.int32,
-                                 device=batch.device)
-                perm, counts = sort_fn(batch, off)
-                # the count fetch, between programs
-                parts.append((batch, perm, counts.cpu().numpy()))
-                offset += batch.num_rows_host()
+        for batch in batches:
+            off = torch.full((), offset, dtype=torch.int32,
+                             device=batch.device)
+            perm, counts = sort_fn(batch, off)
+            # offset-dependent batches serialize: one fetch per batch
+            with trace_span("device.block", site="repart.counts", n=1):
+                host_counts = counts.cpu().numpy()
+            metrics.add_counter("count_fetches")
+            parts.append((batch, perm, host_counts))
+            offset += batch.num_rows_host()
         return parts
 
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
         """Yields ONE COMPACTED batch: the partition's rows of every child
         batch gathered to the front of a ladder capacity that fits, the
         pieces concatenated and padded to a ladder rung."""
+        yield from self._execute_fragments(partition, 0, None)
+
+    def execute_fragments(self, partition: int, frag_lo: int,
+                          frag_hi: int) -> Iterator[ColumnBatch]:
+        """``execute(partition)`` restricted to source fragments
+        ``[frag_lo, frag_hi)`` — the read unit standalone adaptive skew
+        splitting carves a heavy partition by."""
+        yield from self._execute_fragments(partition, frag_lo, frag_hi)
+
+    def num_fragments(self) -> int:
+        return len(self._materialize_parts())
+
+    def observed_partition_rows(self):
+        """Post-materialization row histogram: ``(rows_per_partition,
+        rows[partition][fragment])`` — the standalone stand-in for a
+        cluster's shuffle byte histogram (bytes = rows x schema row
+        width, estimated by the caller)."""
+        parts = self._materialize_parts()
+        per = [[int(counts[q]) for _, _, counts in parts]
+               for q in range(self.num_partitions)]
+        return [sum(row) for row in per], per
+
+    def _execute_fragments(self, partition: int, frag_lo: int,
+                           frag_hi) -> Iterator[ColumnBatch]:
         pieces = []
-        for batch, perm, counts in self._materialize_parts():
+        for batch, perm, counts in self._materialize_parts()[
+                frag_lo:frag_hi]:
             n = int(counts[partition])
             start = int(counts[:partition].sum())
             # never exceed the source capacity; bucketed, so unevenly

@@ -41,8 +41,9 @@ non-zero exit):
    ``graph_call_ms``); results must equal the port on the CPU and an
    integer numpy group-by of the scanned columns, exactly;
 5. TPC-H q3 and q5 at SF1 over all eight tables, cold and warm: each
-   physical plan is printed; q3's must hold a co-partitioned
-   ``JoinExec`` over two ``RepartitionExec``s; the kernel's launch count
+   physical plan (adapted) is printed; q3's plan with the adaptive pass
+   off must hold a co-partitioned ``JoinExec`` over two
+   ``RepartitionExec``s; the kernel's launch count
    is reset just before and read just after each q5 collect (>= 2), every
    observed call is held against the plain version, and the kernel is
    launched again on the inputs of every call of q5's cold collect (the
@@ -78,20 +79,48 @@ non-zero exit):
    while q1 runs cold and 16 more programs are captured; some upload
    must be queued while a capture is open, every upload must equal its
    source and every program its eager result;
-8. hash partition ids on the card: ``hash_partition_ids`` on full-range
+8. the adaptive pass: q3, q5 and a hash-shuffled aggregate
+   (``agg.partitions=8``, grouped by ``l_suppkey``) at SF1 with the pass
+   on (the default) and off, each cold and warm from a cleared table
+   cache and governor at an 8192 MB budget: results equal the port on
+   the CPU and numpy, exactly; the warm collect must replay and capture
+   nothing; every observed kernel call bit-equal to the plain version,
+   q5's launches counted around its collect; with the pass on, q3's and
+   q5's warm collects are timed in turns with the concurrent child
+   partitions and with the serial loop (7 pairs: medians, quartiles);
+   with the pass on the
+   adapted plan is printed and its readers must cover every bucket and
+   source fragment once, with the pass off q3 and q5 must hold a
+   co-partitioned join. Prints the rules that fired, walls, the
+   repartitions' host seconds, count fetches against input batches,
+   replays, and a profiled warm collect's card-busy share and
+   device-to-host copies;
+9. byte-range streaming: q1 at SF1 with lineitem parsed whole and then
+   streamed in 128 MB ranges (``io.text.STREAM_CHUNK_BYTES`` set, then
+   restored), cold and warm from a cleared table cache and governor:
+   each equal to the port on the CPU, the streamed file never cached,
+   the kernel's launches counted around each collect and every observed
+   call bit-equal to the plain version; prints walls, chunks,
+   ``elapsed_parse`` and ``elapsed_h2d``;
+10. float sums at SF1: q8, q14 and q17 (the queries with a Float64
+   result column) on the card and through the port on the CPU: the
+   largest relative error of each float column is printed and must stay
+   within rtol 1e-6; every other column exactly;
+11. hash partition ids on the card: ``hash_partition_ids`` on full-range
    int64 keys and on SF1 ``l_orderkey``, and ``compute_partition_ids`` on
    ``l_orderkey``, on the utf8 ``l_shipmode`` and on both, for P = 8 and
    P = 7, each equal to the ids the CPU computes, bit for bit;
-9. all 22 TPC-H queries at SF0.05 (two files a table, in
+12. all 22 TPC-H queries at SF0.05 (two files a table, in
    ``bench_data/sf0.05``), fused, on the card and through the port on
    the CPU: integer, decimal, date and string columns equal exactly,
    float columns within rtol 1e-6;
-10. in a process of its own, a governed program that cannot be captured
+13. in a process of its own, a governed program that cannot be captured
    (it reads a device value on the host) must raise ``CaptureError``
    rather than run eagerly;
-11. the kernel list, as one JSON line; its times, replicas and VEC are
+14. the kernel list, as one JSON line; its times, replicas and VEC are
     those on q1's main-path inputs, with q5's launches and times beside
-    them.
+    them, and the launches of q5 through the adapted join and of q1
+    over the streamed lineitem.
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -777,7 +806,9 @@ def phase_joins(data_dir: str):
     """q3 and q5 at SF1: plans, launch counts, the kernel on every q5
     call, results against the port on the CPU and numpy."""
     from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.execution import plan_logical
     from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.physical.fusion import maybe_fuse
     from ballista_tpu_torch.physical.join import JoinExec
     from ballista_tpu_torch.physical.operators import RepartitionExec
     from ballista_tpu_torch.testing.tpch_schema import register_tpch
@@ -815,7 +846,14 @@ def phase_joins(data_dir: str):
         for line in plan.pretty().splitlines():
             log(f"#   {line}")
         if q == "q3":
-            copart = [j for j in find_nodes(plan, JoinExec)
+            # the planner's plan, before the adaptive pass rewrites its
+            # readers (phase 8 runs it with the pass off and on)
+            off = BallistaContext.standalone(**{"adaptive.enabled": "off"})
+            register_tpch(off, data_dir)
+            planned = maybe_fuse(plan_logical(off.sql(
+                open(os.path.join(QUERY_DIR, "q3.sql")).read()).plan,
+                off._planner_options()))
+            copart = [j for j in find_nodes(planned, JoinExec)
                       if j.partitioned
                       and isinstance(j.build, RepartitionExec)
                       and isinstance(j.probe, RepartitionExec)]
@@ -867,7 +905,8 @@ def count_nodes(plan, names) -> int:
 
 def profile_warm(df):
     """One more warm collect of ``df`` under ``torch.profiler``: (wall s,
-    device-busy ms, kernels the card ran, host-side launches by kind)."""
+    device-busy ms, kernels the card ran, host-side launches by kind,
+    device-to-host copies: the host's fetches)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -877,9 +916,11 @@ def profile_warm(df):
         df.to_pydict()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy, kernels, host = 0.0, 0, {}
+    busy, kernels, host, dtoh = 0.0, 0, {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.key.startswith("Memcpy DtoH"):
+                dtoh += e.count
             if e.self_device_time_total > 0:
                 busy += e.self_device_time_total / 1e3
                 if not e.key.startswith(("Memcpy", "Memset")):
@@ -888,7 +929,7 @@ def profile_warm(df):
                        "cuLaunchKernel", "cudaGraphLaunch",
                        "cudaMemcpyAsync", "cudaMemsetAsync"):
             host[e.key] = host.get(e.key, 0) + e.count
-    return wall, busy, kernels, host
+    return wall, busy, kernels, host, dtoh
 
 
 def phase_fusion(data_dir: str):
@@ -970,8 +1011,8 @@ def phase_fusion(data_dir: str):
                     raise AssertionError("q16 plans no FusedDistinctCountExec")
                 row["fused_nodes"] = fused
                 (row["profiled_wall_s"], row["busy_ms"],
-                 row["device_kernels"], row["host_launches"]) = \
-                    profile_warm(df)
+                 row["device_kernels"], row["host_launches"],
+                 row["dtoh_copies"]) = profile_warm(df)
                 row["busy_share"] = row["busy_ms"] / (
                     1e3 * row["profiled_wall_s"])
                 rows.append(row)
@@ -1359,6 +1400,379 @@ def phase_ingest(data_dir: str, want: dict):
 
 # -- phase 8 ----------------------------------------------------------------
 
+# the hash-shuffled aggregate of phase 8: 10,000 suppliers at SF1
+AGG8_SQL = ("select l_suppkey, sum(l_quantity) as sum_qty, count(*) as n "
+            "from lineitem group by l_suppkey order by l_suppkey")
+ADAPTIVE_QUERIES = ("q3", "q5", "agg8")
+
+
+def numpy_agg8(data_dir: str):
+    li = scan_table(data_dir, "lineitem", ["l_suppkey", "l_quantity"])
+    keys, sums = group_sums(li["l_suppkey"],
+                            li["l_quantity"].astype(np.int64))
+    _, counts = group_sums(li["l_suppkey"],
+                           np.ones(len(li["l_suppkey"]), np.int64))
+    return {"l_suppkey": keys, "sum_qty": sums.astype(np.float64) / 100,
+            "n": counts}
+
+
+def adaptive_notes(plan) -> list:
+    """The rules that fired in an adapted plan: each adaptive reader's
+    note (once per reader pair) and each demoted join's."""
+    from ballista_tpu_torch.adaptive.standalone import AdaptiveShuffleReadExec
+    from ballista_tpu_torch.physical.join import JoinExec
+
+    notes = [f"join: {j.adaptive_note}" for j in find_nodes(plan, JoinExec)
+             if j.adaptive_note]
+    notes += [f"read: {r.note} ({r.repart.num_partitions} buckets -> "
+              f"{len(r.layout)} tasks)"
+              for r in find_nodes(plan, AdaptiveShuffleReadExec)]
+    return notes
+
+
+def check_adapted_shape(plan, label: str) -> None:
+    """Every adaptive reader covers each (bucket, source fragment) of its
+    repartition exactly once, and the two readers of a co-partitioned
+    join group the same buckets into the same tasks."""
+    from ballista_tpu_torch.adaptive.standalone import AdaptiveShuffleReadExec
+    from ballista_tpu_torch.physical.join import JoinExec
+
+    for r in find_nodes(plan, AdaptiveShuffleReadExec):
+        # the fragments of the latest collect (num_fragments() would
+        # materialize the released repartition again)
+        n = r.repart.num_partitions
+        frags = int(r.repart.metrics().values()["input_batches"])
+        seen = np.zeros((n, frags), np.int64)
+        for ranges in r.layout:
+            for olo, ohi, flo, fhi in ranges:
+                seen[olo:ohi, flo:(fhi or frags)] += 1
+        if not (seen == 1).all():
+            raise AssertionError(f"{label}: a reader's layout does not "
+                                 f"cover every bucket once: {r.layout}")
+    for j in find_nodes(plan, JoinExec):
+        if j.partitioned and isinstance(j.build, AdaptiveShuffleReadExec):
+            tasks = [[(a, b) for a, b, _, _ in t] for t in j.build.layout]
+            if tasks != [[(a, b) for a, b, _, _ in t]
+                         for t in j.probe.layout]:
+                raise AssertionError(f"{label}: the join's readers group "
+                                     f"different buckets")
+
+
+def repartition_facts(plan) -> dict:
+    """Summed over the plan's repartitions: host seconds materializing
+    (the child's execution included), count fetches and input batches
+    (one fetch per batch before this change)."""
+    from ballista_tpu_torch.physical.operators import RepartitionExec
+
+    out = {"repartitions": 0, "materialize_s": 0.0, "count_fetches": 0,
+           "input_batches": 0}
+    for node in find_nodes(plan, RepartitionExec):
+        vals = node.metrics().values()
+        out["repartitions"] += 1
+        out["materialize_s"] += vals.get("elapsed_materialize", 0.0)
+        out["count_fetches"] += int(vals.get("count_fetches", 0))
+        out["input_batches"] += int(vals.get("input_batches", 0))
+    return out
+
+
+SERIAL_ENV = {"BALLISTA_PREFETCH_BATCHES": "0", "BALLISTA_INGEST_THREADS": "1"}
+AB_PAIRS = 7
+
+
+def pipelined_vs_serial(df, q: str, want, budget_env: dict) -> dict:
+    """Warm collects of ``df`` (the pass on, every scan a cache hit) with
+    the concurrent child partitions and with the serial loop
+    (``SERIAL_ENV``), ``AB_PAIRS`` pairs in turns, the order alternating:
+    (median, lower quartile, upper quartile) seconds of each."""
+    walls = {"pipelined": [], "serial": []}
+    for i in range(AB_PAIRS):
+        order = ("pipelined", "serial") if i % 2 == 0 else ("serial",
+                                                             "pipelined")
+        for mode in order:
+            set_ingest_env({**budget_env,
+                            **(SERIAL_ENV if mode == "serial" else {})})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = df.to_pydict()
+            torch.cuda.synchronize()
+            walls[mode].append(time.perf_counter() - t0)
+            assert_equal_results(f"{q} warm {mode} cuda vs cpu", out, want)
+    set_ingest_env(budget_env)
+    out = {mode: [float(np.median(w)), float(np.percentile(w, 25)),
+                  float(np.percentile(w, 75))] for mode, w in walls.items()}
+    log(f"# adaptive=on {q} warm, {AB_PAIRS} pairs in turns: pipelined "
+        f"median {out['pipelined'][0]:.4f} s (quartiles "
+        f"{out['pipelined'][1]:.4f}-{out['pipelined'][2]:.4f}), serial loop "
+        f"median {out['serial'][0]:.4f} s (quartiles "
+        f"{out['serial'][1]:.4f}-{out['serial'][2]:.4f})")
+    return out
+
+
+def phase_adaptive(data_dir: str, want: dict):
+    """q3, q5 and a hash-shuffled aggregate (``agg.partitions=8``) at SF1
+    with the adaptive pass on (the default) and off, each cold and warm
+    from a cleared table cache and governor at an 8192 MB budget: results
+    equal the port on the CPU and numpy exactly; the warm collect replays
+    and captures nothing; every observed kernel call bit-equal to the
+    plain version; q5's launches counted (the kernel's path through the
+    adapted join). Prints the adapted plans, the rules that fired, walls,
+    repartition host seconds, count fetches, replays and a profiled warm
+    collect (card-busy share, device-to-host copies)."""
+    import gc
+
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import compile_stats, governor
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.physical.join import JoinExec
+    from ballista_tpu_torch.physical.operators import RepartitionExec
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    sqls = {q: open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            for q in ("q3", "q5")}
+    sqls["agg8"] = AGG8_SQL
+    agg8 = {"agg.partitions": "8"}
+    cpu = BallistaContext.standalone(device="cpu", **agg8)
+    register_tpch(cpu, data_dir, tables=["lineitem"])
+    want = {"q3": want["q3"], "q5": want["q5"],
+            "agg8": cpu.sql(AGG8_SQL).to_pydict()}
+    refs = {"q3": numpy_q3(data_dir), "q5": numpy_q5(data_dir),
+            "agg8": numpy_agg8(data_dir)}
+    for q in ADAPTIVE_QUERIES:
+        assert_equal_results(f"{q} cpu vs numpy", want[q], refs[q])
+    rows, q5_launches = [], None
+    set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "8192"})
+    try:
+        for setting in ("on", "off"):
+            for q in ADAPTIVE_QUERIES:
+                residency._reset_for_tests()
+                governor().clear()
+                gc.collect()
+                settings = {"adaptive.enabled": setting,
+                            **(agg8 if q == "agg8" else {})}
+                ctx = BallistaContext.standalone(**settings)
+                register_tpch(ctx, data_dir)
+                df = ctx.sql(sqls[q])
+                row = {"query": q, "adaptive": setting}
+                for run in ("cold", "warm"):
+                    with KernelCallLog() as spy:
+                        st0 = compile_stats()
+                        torch.cuda.synchronize()
+                        ds.launch_count = 0
+                        t0 = time.perf_counter()
+                        out = df.to_pydict()
+                        torch.cuda.synchronize()
+                        row[f"{run}_s"] = time.perf_counter() - t0
+                        row[f"{run}_kernel_launches"] = ds.launch_count
+                        st1 = compile_stats()
+                    check_observed(spy.calls, f"{q} adaptive={setting} {run}")
+                    assert_equal_results(
+                        f"{q} adaptive={setting} {run} cuda vs cpu", out,
+                        want[q])
+                    assert_equal_results(
+                        f"{q} adaptive={setting} {run} cuda vs numpy", out,
+                        refs[q])
+                    row[f"{run}_captures"] = (st1["graph_captures"]
+                                              - st0["graph_captures"])
+                    row[f"{run}_replays"] = (st1["graph_replays"]
+                                             - st0["graph_replays"])
+                    for k, v in repartition_facts(
+                            df.physical_plan()).items():
+                        row[f"{run}_{k}"] = v
+                if row["warm_captures"] or not row["warm_replays"]:
+                    raise AssertionError(
+                        f"{q} adaptive={setting}: the warm collect captured "
+                        f"{row['warm_captures']} and replayed "
+                        f"{row['warm_replays']}; it must replay only")
+                if q == "q5":
+                    if not row["cold_kernel_launches"]:
+                        raise AssertionError(
+                            f"q5 adaptive={setting}: no dense_grouped_sums "
+                            f"launch counted")
+                    if setting == "on":
+                        q5_launches = row["cold_kernel_launches"]
+                plan = df.physical_plan()
+                row["rules"] = adaptive_notes(plan)
+                if setting == "on":
+                    check_adapted_shape(plan, q)
+                    for line in plan.pretty().splitlines():
+                        log(f"#   {line}")
+                else:
+                    if row["rules"]:
+                        raise AssertionError(f"{q}: rules fired with the "
+                                             f"pass off: {row['rules']}")
+                    if q != "agg8" and not [
+                            j for j in find_nodes(plan, JoinExec)
+                            if j.partitioned
+                            and isinstance(j.build, RepartitionExec)
+                            and isinstance(j.probe, RepartitionExec)]:
+                        raise AssertionError(f"{q} with the pass off holds "
+                                             f"no co-partitioned JoinExec")
+                (row["profiled_wall_s"], row["busy_ms"], _, _,
+                 row["dtoh_copies"]) = profile_warm(df)
+                if setting == "on" and q != "agg8":
+                    row["warm_pipelined_vs_serial_s"] = pipelined_vs_serial(
+                        df, q, want[q], {"BALLISTA_TABLE_CACHE_BUDGET_MB":
+                                         "8192"})
+                row["busy_share"] = row["busy_ms"] / (
+                    1e3 * row["profiled_wall_s"])
+                rows.append(row)
+                log(f"# adaptive={setting} {q}: rules {row['rules']}; cold "
+                    f"{row['cold_s']:.4f} s, warm {row['warm_s']:.4f} s "
+                    f"({row['warm_replays']} replays, "
+                    f"{row['warm_captures']} captures); repartitions "
+                    f"{row['warm_repartitions']}: warm "
+                    f"{row['warm_materialize_s'] * 1e3:.1f} ms host, "
+                    f"{row['warm_count_fetches']} count fetches for "
+                    f"{row['warm_input_batches']} batches; kernel launches "
+                    f"cold/warm {row['cold_kernel_launches']}/"
+                    f"{row['warm_kernel_launches']}; profiled warm "
+                    f"{row['profiled_wall_s'] * 1e3:.1f} ms, card busy "
+                    f"{row['busy_ms']:.1f} ms "
+                    f"({100 * row['busy_share']:.1f}%), "
+                    f"{row['dtoh_copies']} device-to-host copies; == port "
+                    f"on cpu == numpy")
+                del df, ctx
+    finally:
+        set_ingest_env({})
+    residency._reset_for_tests()
+    governor().clear()
+    return rows, q5_launches
+
+
+# -- phase 9 ----------------------------------------------------------------
+
+STREAM_CHUNK = 128 << 20  # lineitem at SF1 is about 760 MB of text
+
+
+def phase_streaming(data_dir: str, want_q1):
+    """q1 at SF1 with lineitem parsed whole and streamed in byte ranges
+    of ``STREAM_CHUNK`` (``io.text.STREAM_CHUNK_BYTES`` set, then
+    restored), each cold and warm from a cleared table cache and
+    governor: both equal the port on the CPU; the streamed file is never
+    cached (its warm collect parses again); the kernel's launches are
+    counted and every observed call is bit-equal to the plain version."""
+    from ballista_tpu_torch.cache import cache_counters, reset_cache_stats
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import governor
+    from ballista_tpu_torch.io import text
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    path = os.path.join(data_dir, "lineitem", "partition0.tbl")
+    size = os.path.getsize(path)
+    if size <= STREAM_CHUNK:
+        raise AssertionError(f"lineitem ({size} bytes) would not stream")
+    sql = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+    saved = text.STREAM_CHUNK_BYTES
+    rows, launches = [], None
+    try:
+        for mode, chunk in (("whole file", saved), ("streamed", STREAM_CHUNK)):
+            text.STREAM_CHUNK_BYTES = chunk
+            residency._reset_for_tests()
+            governor().clear()
+            ctx = BallistaContext.standalone()
+            register_tpch(ctx, data_dir, tables=["lineitem"])
+            df = ctx.sql(sql)
+            for run in ("cold", "warm"):
+                reset_cache_stats()
+                with KernelCallLog() as spy:
+                    torch.cuda.synchronize()
+                    ds.launch_count = 0
+                    t0 = time.perf_counter()
+                    out = df.to_pydict()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    n_launch = ds.launch_count
+                check_observed(spy.calls, f"q1 {mode} {run}")
+                assert_equal_results(f"q1 {mode} {run} cuda vs cpu", out,
+                                     want_q1)
+                if n_launch < 2:
+                    raise AssertionError(f"q1 {mode} {run}: {n_launch} "
+                                         f"dense_grouped_sums launches")
+                cc = cache_counters()
+                parse, h2d = scan_phase_seconds(df.physical_plan())
+                row = {"mode": mode, "run": run, "wall_s": wall,
+                       "parse_s": parse, "h2d_s": h2d,
+                       "chunks": -(-size // chunk) if chunk < size else 1,
+                       "hits": cc["table_cache_hits"],
+                       "fills": cc["table_cache_fills"],
+                       "kernel_launches": n_launch,
+                       "observed_kernel_calls": len(spy.calls)}
+                if mode == "streamed":
+                    if row["hits"] or row["fills"] or not parse:
+                        raise AssertionError(f"the streamed lineitem must "
+                                             f"bypass the cache: {row}")
+                    if run == "cold":
+                        launches = n_launch
+                rows.append(row)
+                log(f"# streaming {mode} q1 {run}: {wall:.4f} s, "
+                    f"{row['chunks']} chunks of {chunk} bytes over "
+                    f"{size} bytes; parse {parse:.4f} s, h2d {h2d:.4f} s "
+                    f"(host thread-seconds); cache hits {row['hits']}, "
+                    f"fills {row['fills']}; kernel launches {n_launch}; "
+                    f"== port on cpu")
+            del df, ctx
+    finally:
+        text.STREAM_CHUNK_BYTES = saved
+    residency._reset_for_tests()
+    governor().clear()
+    return rows, launches
+
+
+# -- phase 10 ---------------------------------------------------------------
+
+FLOAT_QUERIES = ("q8", "q14", "q17")  # the 22 whose results hold a Float64
+
+
+def phase_float_sf1(data_dir: str) -> dict:
+    """The SF0.05 set's queries with a Float64 result column (computed in
+    float32 on the card, its sums by atomics in no fixed order) at SF1,
+    on the card and through the port on the CPU: the largest relative
+    error of each float column, which must stay within rtol 1e-6; every
+    other column exactly."""
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    gpu = BallistaContext.standalone()
+    cpu = BallistaContext.standalone(device="cpu")
+    register_tpch(gpu, data_dir)
+    register_tpch(cpu, data_dir)
+    errs = {}
+    for q in FLOAT_QUERIES:
+        df = gpu.sql(open(os.path.join(QUERY_DIR, f"{q}.sql")).read())
+        floats = [f.name for f in df.schema().fields
+                  if f.dtype.kind in ("float32", "float64")]
+        if not floats:
+            raise AssertionError(f"{q} holds no float column")
+        got = df.to_pydict()
+        want = cpu.sql(open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+                       ).to_pydict()
+        if list(got) != list(want):
+            raise AssertionError(f"{q}: columns {list(got)} != {list(want)}")
+        for c in want:
+            g, w = np.asarray(got[c]), np.asarray(want[c])
+            if g.shape != w.shape:
+                raise AssertionError(f"{q}.{c}: shape {g.shape} != {w.shape}")
+            if c in floats:
+                rel = float(np.max(np.abs(g - w) / np.maximum(np.abs(w),
+                                                              1e-300))
+                            if len(w) else 0.0)
+                errs[f"{q}.{c}"] = rel
+                log(f"# float sf1 {q}.{c}: largest relative error card vs "
+                    f"cpu {rel:.3e} over {len(w)} rows")
+                if not np.allclose(g, w, rtol=1e-6, atol=0.0):
+                    raise AssertionError(f"{q}.{c} at SF1 leaves rtol 1e-6: "
+                                         f"{rel:.3e}")
+            elif not (list(g) == list(w) if w.dtype.kind == "O"
+                      else np.array_equal(g, w)):
+                raise AssertionError(f"{q}.{c}: {g[:8]} != {w[:8]}")
+    return errs
+
+
+# -- phase 11 ---------------------------------------------------------------
+
 
 def phase_hash_ids(data_dir: str) -> None:
     """Partition ids on the card equal the ids on the CPU, bit for bit."""
@@ -1414,7 +1828,7 @@ def phase_hash_ids(data_dir: str) -> None:
                 f"rows per partition {counts.tolist()}")
 
 
-# -- phase 9 ----------------------------------------------------------------
+# -- phase 12 ---------------------------------------------------------------
 
 
 def assert_close_results(name: str, got, want) -> None:
@@ -1561,6 +1975,11 @@ def main() -> int:
     log(f"# q5 kernel shapes (N, K, G): {q5_shapes}")
     fusion_rows, cpu_results = phase_fusion(data_dir)
     ingest_rows, capture_check = phase_ingest(data_dir, cpu_results)
+    adaptive_rows, adaptive_q5_launches = phase_adaptive(data_dir,
+                                                         cpu_results)
+    streaming_rows, streamed_q1_launches = phase_streaming(
+        data_dir, cpu_results["q1"])
+    float_errs = phase_float_sf1(data_dir)
     phase_hash_ids(data_dir)
     small_secs = phase_all_queries(small_dir)
     phase_capture_failure()
@@ -1571,6 +1990,9 @@ def main() -> int:
     log(f"# fusion: {json.dumps(fusion_rows)}")
     log(f"# ingest: {json.dumps(ingest_rows)}")
     log(f"# upload under capture: {json.dumps(capture_check)}")
+    log(f"# adaptive: {json.dumps(adaptive_rows)}")
+    log(f"# streaming: {json.dumps(streaming_rows)}")
+    log(f"# float sf1 largest relative errors: {json.dumps(float_errs)}")
     log(f"# sf{SMALL_SCALE:g} seconds on the card: {json.dumps(small_secs)}")
     kernels = [{
         "name": "dense_grouped_sums",
@@ -1596,6 +2018,8 @@ def main() -> int:
         "graph_ms": main_path["graph_ms"],
         "graph_call_ms": main_path["graph_call_ms"],
         "q5_launches": q5_launches[0],
+        "adaptive_q5_launches": adaptive_q5_launches,
+        "streamed_q1_launches": streamed_q1_launches,
         "q5_ms": q5_main["ms"],
         "q5_call_ms": q5_main["call_ms"],
         "q5_plain_ms": q5_main["plain_ms"],

@@ -22,7 +22,7 @@ from ballista_tpu_torch.cache import (cache_counters, mark_transient,
                                       reset_cache_stats)
 from ballista_tpu_torch.cache import residency
 from ballista_tpu_torch.client import BallistaContext
-from ballista_tpu_torch.columnar import ColumnBatch
+from ballista_tpu_torch.columnar import Column, ColumnBatch
 from ballista_tpu_torch.compile import compile_stats, governed
 from ballista_tpu_torch.errors import ExecutionError
 from ballista_tpu_torch.physical.base import donating_call
@@ -30,9 +30,18 @@ from ballista_tpu_torch.testing.capture_check import emulated_graphs
 
 from torch_warm_path import (WARM_QUERIES, assert_equals_reference,
                              assert_identical, generate_tpch,
-                             pinned_fingerprints, port_ctx,
+                             pinned_fingerprints, pinned_threads, port_ctx,
                              reference_result, reset_port_caches,
                              scanned_partitions, sql)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_threads():
+    """Two torch, ingest and scanner threads for this file's queries
+    (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
+
 
 ALL_QUERIES = [f"q{i}" for i in range(1, 23)]
 
@@ -217,6 +226,52 @@ def test_governor_eviction_lru_and_dead_fill(monkeypatch):
     assert cache.stats()["refusals"] >= 1
     assert not cache.contains(("t", "c"))
 
+    cache.invalidate()
+    assert cache.governor.resident_bytes == 0
+
+
+def _meta_batch(kb: int) -> ColumnBatch:
+    """A batch of about ``kb`` KiB of int64 values on the ``meta``
+    device: a second device key on a machine without a card."""
+    n = (kb << 10) // 8
+    return ColumnBatch(
+        schema(("a", Int64)),
+        [Column(torch.empty(n, dtype=torch.int64, device="meta"), Int64)],
+        torch.empty(n, dtype=torch.bool, device="meta"),
+        torch.empty((), dtype=torch.int32, device="meta"))
+
+
+def test_budget_per_device(monkeypatch):
+    """Each device has its own budget: filling the cache past the budget
+    on the CPU evicts only CPU entries, and an entry resident on another
+    device stays; the stats break the bytes down per device."""
+    monkeypatch.setenv("BALLISTA_TABLE_CACHE_BUDGET_MB", "1")
+    monkeypatch.setenv("BALLISTA_TABLE_CACHE_WATERMARK", "1.0")
+    cache = residency.DeviceTableCache()
+
+    fm = cache.begin_fill(("meta", "m"))
+    assert fm.add(_meta_batch(700)) and fm.commit()
+    for i in range(4):  # two of these fit the CPU's 1 MiB budget
+        f = cache.begin_fill(("cpu", i))
+        assert f.add(_kb_batch(400)) and f.commit()
+    stats = cache.stats()
+    assert cache.contains(("meta", "m"))
+    assert stats["evictions"] == 2  # CPU entries 0 and 1, coldest first
+    assert not cache.contains(("cpu", 0)) and not cache.contains(("cpu", 1))
+    assert cache.contains(("cpu", 2)) and cache.contains(("cpu", 3))
+    meta, cpu = stats["per_device"]["meta"], stats["per_device"]["cpu"]
+    assert meta["resident_bytes"] == residency.batch_device_bytes(
+        _meta_batch(700))
+    assert cpu["resident_bytes"] == 2 * residency.batch_device_bytes(
+        _kb_batch(400))
+    assert stats["resident_bytes"] == (meta["resident_bytes"]
+                                       + cpu["resident_bytes"])
+    # a CPU fill larger than the budget dies without touching the meta
+    # entry
+    f = cache.begin_fill(("cpu", "big"))
+    assert f.add(_kb_batch(2048)) is False
+    assert cache.contains(("meta", "m"))
+    assert cache.stats()["per_device"]["cpu"]["resident_bytes"] == 0
     cache.invalidate()
     assert cache.governor.resident_bytes == 0
 

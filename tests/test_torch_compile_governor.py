@@ -14,6 +14,7 @@ here sums integers. The ``test_cuda_*`` tests need a card and skip here
 
 import gc
 import importlib
+import threading
 import weakref
 
 import jax.numpy as jnp
@@ -29,6 +30,17 @@ from ballista_tpu_torch.observability.metrics import MetricsSet
 from ballista_tpu_torch.physical.base import compact_perm
 from ballista_tpu_torch.testing.capture_check import (emulated_graphs,
                                                       simulated_capture)
+
+from torch_warm_path import pinned_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_threads():
+    """Two torch, ingest and scanner threads for this file's queries
+    (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
+
 
 gov = importlib.import_module("ballista_tpu_torch.compile.governor")
 
@@ -574,6 +586,42 @@ def test_cuda_kernel_first_call_inside_a_capture():
     want = ds.dense_grouped_sums_reference(gids, live, vals, g)
     assert torch.equal(sums[0], want[0][0])
     assert torch.equal(counts, want[1]) and torch.equal(first, want[2])
+
+
+def test_cuda_concurrent_replays_keep_their_outputs():
+    """Partitions replay programs from ingest-pool threads at once.
+    Graphs share their card's pool, so one graph's internals may lie
+    where another's static outputs are: each replay's outputs must be
+    copied out before another thread's replay is queued."""
+    _needs_card()
+
+    def f_p(x):
+        return ((x * 3 + 1) * 5 - 7) * 2
+
+    def f_q(y):
+        return (y + 11) * 13
+
+    p = governed(("sort.run", "test.cuda.concurrent_p"), lambda: f_p)
+    q = governed(("sort.run", "test.cuda.concurrent_q"), lambda: f_q)
+    xs = [torch.arange(1 << 20, device="cuda") + i for i in range(8)]
+    for fn in (p, q):  # warm-up and capture, one thread
+        fn(xs[0])
+        fn(xs[0])
+    bad = []
+
+    def hammer(fn, want):
+        for i in range(300):
+            x = xs[i % len(xs)]
+            if not torch.equal(fn(x), want(x)):
+                bad.append((fn, i))
+
+    threads = [threading.Thread(target=hammer, args=(p, f_p)),
+               threading.Thread(target=hammer, args=(q, f_q))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not bad, f"{len(bad)} replays returned another graph's data"
 
 
 def test_cuda_capture_after_every_program_was_dropped():

@@ -15,6 +15,17 @@ from ballista_tpu_torch.client import BallistaContext
 from ballista_tpu_torch.optimizer import optimize
 from ballista_tpu_torch.testing.tpch_schema import TPCH_PKS, TPCH_SCHEMAS, register_tpch
 
+from torch_warm_path import pinned_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_threads():
+    """Two torch, ingest and scanner threads for this file's queries
+    (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
+
+
 QDIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "tpch",
                     "queries")
 QUERIES = [f"q{i}" for i in range(1, 23)]

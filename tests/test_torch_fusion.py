@@ -49,6 +49,8 @@ from ballista_tpu_torch.testing.capture_check import (emulated_graphs,
                                                       simulated_capture)
 from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
+from torch_warm_path import pinned_threads
+
 QUERIES = [f"q{i}" for i in range(1, 23)]
 QDIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "tpch",
                     "queries")
@@ -61,12 +63,11 @@ def _sql(q):
 @pytest.fixture(scope="module", autouse=True)
 def _two_threads():
     """The tier runs its files in parallel worker processes on one
-    machine: this file's torch ops take two threads, not every core, so
-    they do not starve the workers beside them."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
+    machine: this file's torch ops, ingest pool and scanner take two
+    threads, not every core, so they do not starve the workers beside
+    them (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
 
 
 @pytest.fixture(scope="module")

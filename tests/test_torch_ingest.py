@@ -26,9 +26,17 @@ from ballista_tpu_torch.logical import TableSource
 from ballista_tpu_torch.physical.operators import ScanExec
 
 from torch_warm_path import (WARM_QUERIES, assert_equals_reference,
-                             assert_identical, generate_tpch, port_ctx,
-                             reference_result, reset_port_caches,
+                             assert_identical, generate_tpch, pinned_threads,
+                             port_ctx, reference_result, reset_port_caches,
                              scan_nodes, sql)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_threads():
+    """Two torch, ingest and scanner threads for this file's queries
+    (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
 
 
 def _configure(monkeypatch, threads, prefetch):
@@ -203,6 +211,82 @@ def test_iter_partitions_preserves_order(monkeypatch):
     out = [int(b.columns[0].values[0])
            for b in iter_partitions(TaggedPlan(), range(3))]
     assert out == [0, 1, 10, 11, 20, 21]
+
+
+# ---------------------------------------------------------------------------
+# concurrent child partitions: MergeExec, RepartitionExec and the merged
+# join's build produce on the pool, identical to the serial loop
+# ---------------------------------------------------------------------------
+
+
+def _part_dir(tmp_path, name, files, rows, line):
+    d = tmp_path / name
+    d.mkdir(exist_ok=True)
+    for f in range(files):
+        (d / f"{f}.tbl").write_text("".join(
+            line(f * rows + i) for i in range(rows)))
+    return str(d)
+
+
+def _scan(path, sch):
+    from ballista_tpu_torch.io import TblSource
+
+    return ScanExec(path, TblSource(path, sch, device="cpu",
+                                    batch_capacity=128))
+
+
+def _operator(kind, tmp_path):
+    """A multi-partition operator of ``kind`` over 4 files of 300 rows
+    (3 batches of 128 rows a file)."""
+    from ballista_tpu_torch import expr as ex
+    from ballista_tpu_torch.physical.join import JoinExec
+    from ballista_tpu_torch.physical.operators import (MergeExec,
+                                                       RepartitionExec)
+
+    facts = _part_dir(tmp_path, "fact", 4, 300,
+                      lambda i: f"{i}|{i % 97}|k{i % 13}|\n")
+    fact = _scan(facts, schema(("a", Int64), ("fk", Int64), ("c", Utf8)))
+    if kind == "merge":
+        return MergeExec(fact)
+    if kind == "hash_repartition":
+        return RepartitionExec(fact, 4, [ex.col("c")])
+    if kind == "round_robin":
+        return RepartitionExec(fact, 4)
+    dims = _part_dir(tmp_path, "dim", 4, 25, lambda i: f"{i}|d{i % 5}|\n")
+    dim = _scan(dims, schema(("k", Int64), ("name", Utf8)))
+    return JoinExec(dim, fact, [("k", "fk")], device="cpu")
+
+
+def _drain(plan):
+    """Every output partition's batches, as one dict of host arrays per
+    batch, in partition and batch order."""
+    return [b.to_pydict() for p in range(
+        plan.output_partitioning().num_partitions) for b in plan.execute(p)]
+
+
+@pytest.mark.parametrize(
+    "kind", ["merge", "hash_repartition", "round_robin", "join_build"])
+def test_pipelined_operators_equal_serial(tmp_path, monkeypatch, kind):
+    """Pipelined child partitions give the serial loop's batches, byte
+    for byte; a hash repartition fetches its counts once, round-robin
+    and the serial loop once per batch (12 here)."""
+    from ballista_tpu_torch.physical.operators import RepartitionExec
+
+    runs = {}
+    for mode, (threads, prefetch) in (("serial", (1, 0)),
+                                      ("pipelined", (4, 2))):
+        _configure(monkeypatch, threads, prefetch)
+        reset_port_caches()
+        plan = _operator(kind, tmp_path)
+        runs[mode] = _drain(plan)
+        if isinstance(plan, RepartitionExec):
+            fetches = plan.metrics().values()["count_fetches"]
+            want = 1 if (mode, kind) == ("pipelined",
+                                         "hash_repartition") else 12
+            assert fetches == want, (mode, fetches)
+    assert len(runs["serial"]) == len(runs["pipelined"]) > 0
+    for i, (a, b) in enumerate(zip(runs["serial"], runs["pipelined"])):
+        assert_identical(a, b, f"{kind}[{i}]")
 
 
 # ---------------------------------------------------------------------------

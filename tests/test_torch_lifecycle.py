@@ -19,8 +19,16 @@ from ballista_tpu_torch.ingest import pipeline
 from ballista_tpu_torch.io import native
 
 from torch_warm_path import (assert_equals_reference, generate_tpch,
-                             port_ctx, reference_result, reset_port_caches,
-                             sql)
+                             pinned_threads, port_ctx, reference_result,
+                             reset_port_caches, sql)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_threads():
+    """Two torch, ingest and scanner threads for this file's queries
+    (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,17 @@ from ballista_tpu_torch.physical.aggregate import HashAggregateExec
 from ballista_tpu_torch.physical.operators import MergeExec, SortExec
 from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
+from torch_warm_path import pinned_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_threads():
+    """Two torch, ingest and scanner threads for this file's queries
+    (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
+
+
 QDIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "tpch",
                     "queries")
 

@@ -29,10 +29,24 @@ from ballista_tpu_torch.physical.join import JoinExec
 from ballista_tpu_torch.physical.operators import RepartitionExec
 from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
+from torch_warm_path import pinned_threads
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _pinned_threads():
+    """Two torch, ingest and scanner threads for this file's queries
+    (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
+
+
 QUERIES = [f"q{i}" for i in range(1, 23)]
 QDIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "tpch",
                     "queries")
-SHUFFLED = {"join.partitioned.threshold": "100", "agg.partitions": "4"}
+# the adaptive pass would demote or coalesce these operators away at this
+# size (tests/test_torch_adaptive.py runs them with it on)
+SHUFFLED = {"join.partitioned.threshold": "100", "agg.partitions": "4",
+            "adaptive.enabled": "off"}
 
 
 def _sql(q):

@@ -14,12 +14,13 @@ import os
 import numpy as np
 import pandas as pd
 import pytest
-import torch
 
 from benchmarks.tpch import datagen, oracle
 
 from ballista_tpu_torch.client import BallistaContext
 from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+from torch_warm_path import pinned_threads
 
 QUERIES = [f"q{i}" for i in range(1, 23)]
 QDIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "tpch",
@@ -31,12 +32,11 @@ pytestmark = pytest.mark.sf02
 @pytest.fixture(scope="module", autouse=True)
 def _two_threads():
     """The tier runs its files in parallel worker processes on one
-    machine: this file's torch ops take two threads, not every core, so
-    they do not starve the workers beside them."""
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
+    machine: this file's torch ops, ingest pool and scanner take two
+    threads, not every core, so they do not starve the workers beside
+    them (``torch_warm_path.pinned_threads``)."""
+    with pinned_threads():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -1,11 +1,12 @@
-"""Shared helpers of the port's warm-path tests (``test_torch_ingest.py``,
-``test_torch_cache.py``, ``test_torch_lifecycle.py``): TPC-H SF0.002
-data, contexts of the port on the CPU and of the JAX package, and the
-comparisons. The JAX package is imported only inside the functions that
+"""Shared helpers of the port's tests (``test_torch_ingest.py``,
+``test_torch_cache.py``, ``test_torch_lifecycle.py`` and the thread pin
+of every file that runs queries): TPC-H SF0.002 data, contexts of the
+port on the CPU and of the JAX package, and the comparisons. The JAX package is imported only inside the functions that
 run it, so the card-only tests of those files import without it."""
 
 import hashlib
 import os
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -13,6 +14,36 @@ import torch
 QDIR = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "tpch",
                     "queries")
 WARM_QUERIES = ["q1", "q3", "q5", "q16"]
+
+
+_PINNED_ENV = ("BALLISTA_INGEST_THREADS", "BALLISTA_SCAN_THREADS")
+
+
+@contextmanager
+def pinned_threads(n: int = 2):
+    """``n`` torch threads, ``n`` ingest-pool workers and ``n`` scanner
+    threads per file, the ingest config re-read on the way in and out.
+    The tier runs its files in parallel worker processes on one machine:
+    a file of the port's queries then takes ``n`` cores, not every core,
+    and does not starve the timing-gated tests beside it."""
+    from ballista_tpu_torch import ingest
+
+    prev_threads = torch.get_num_threads()
+    prev_env = {k: os.environ.get(k) for k in _PINNED_ENV}
+    torch.set_num_threads(n)
+    for k in _PINNED_ENV:
+        os.environ[k] = str(n)
+    ingest.reconfigure()
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev_threads)
+        for k, v in prev_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        ingest.reconfigure()
 
 
 def sql(q: str) -> str:
