@@ -27,7 +27,7 @@ import torch
 from .datatypes import Schema, schema as make_schema
 from .errors import ExecutionError, PlanError
 from . import expr as ex
-from .io import CsvSource, MemTableSource, TblSource
+from .io import CsvSource, MemTableSource, ParquetSource, TblSource
 from .logical import (
     Aggregate,
     Filter,
@@ -113,6 +113,15 @@ class BallistaContext:
             primary_key,
         )
 
+    def register_parquet(self, name: str, path: str,
+                         schema: Optional[Schema] = None,
+                         primary_key: Optional[str] = None, **kw) -> None:
+        """A Parquet file or a directory of ``*.parquet`` files (one
+        partition each), scanned on this context's device."""
+        self.register_source(
+            name, ParquetSource(path, schema, device=self.device, **kw),
+            primary_key)
+
     def register_memtable(self, name: str, schema: Schema, data: Dict,
                           num_partitions: int = 1,
                           primary_key: Optional[str] = None) -> None:
@@ -150,6 +159,11 @@ class BallistaContext:
                         device=self.device, **kw)
         return DataFrame(self, TableScan("csv:" + path, src))
 
+    def read_parquet(self, path: str, schema: Optional[Schema] = None,
+                     **kw) -> "DataFrame":
+        src = ParquetSource(path, schema, device=self.device, **kw)
+        return DataFrame(self, TableScan("parquet:" + path, src))
+
     def table(self, name: str) -> "DataFrame":
         if name not in self._catalog:
             raise PlanError(f"unknown table {name!r}")
@@ -174,6 +188,8 @@ class BallistaContext:
                                   has_header=stmt.has_header)
             elif stmt.stored_as in ("TBL",):
                 self.register_tbl(stmt.name, stmt.location, sch)
+            elif stmt.stored_as in ("PARQUET",):
+                self.register_parquet(stmt.name, stmt.location, sch)
             else:
                 raise PlanError(f"STORED AS {stmt.stored_as} unsupported")
             return DataFrame(self, None)

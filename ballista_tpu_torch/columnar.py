@@ -39,6 +39,9 @@ from .errors import ExecutionError, SchemaError
 # Default physical batch capacity (rows), as in the JAX package.
 DEFAULT_BATCH_CAPACITY = 1 << 20
 
+# largest str view a Dictionary keeps (values_str), as in the JAX package
+_STR_CACHE_CAP_BYTES = 256 << 20
+
 # FNV-1a constants (stable_hashes)
 _FNV_OFFSET = np.uint64(0xCBF29CE484222325)
 _FNV_PRIME = np.uint64(0x100000001B3)
@@ -133,13 +136,19 @@ class Dictionary:
     Comparison kernels assume the values are sorted and duplicate-free.
     """
 
-    __slots__ = ("values", "_index", "_str_cache", "_hash_cache")
+    __slots__ = ("values", "_index", "_str_cache", "_hash_cache",
+                 "_str_exact", "_reg_entry_id", "_reg_version", "_reg_epoch")
 
     def __init__(self, values: Sequence[str]):
         self.values: np.ndarray = np.asarray(list(values), dtype=object)
         self._index: Dict[str, int] = {v: i for i, v in enumerate(self.values)}
         self._str_cache: Optional[np.ndarray] = None
         self._hash_cache: Optional[np.ndarray] = None
+        # stamps of the dictionary registry (columnar_registry.py)
+        self._str_exact: Optional[bool] = None
+        self._reg_entry_id: Optional[str] = None
+        self._reg_version: Optional[int] = None
+        self._reg_epoch: Optional[str] = None
 
     def __len__(self) -> int:
         return len(self.values)
@@ -155,10 +164,18 @@ class Dictionary:
         return Dictionary(uniq), codes.astype(np.int32)
 
     def values_str(self) -> np.ndarray:
-        """Fixed-width ``np.str_`` view of the (sorted) values, cached."""
+        """Fixed-width ``np.str_`` view of the (sorted) values, cached
+        (up to ``_STR_CACHE_CAP_BYTES``)."""
+        if self._str_cache is not None:
+            return self._str_cache
+        sv = self.values.astype(str)
+        if sv.nbytes <= _STR_CACHE_CAP_BYTES:
+            self._str_cache = sv
+        return sv
+
+    def _cache_str_view(self, sv: np.ndarray) -> None:
         if self._str_cache is None:
-            self._str_cache = self.values.astype(str)
-        return self._str_cache
+            self._str_cache = sv
 
     def positions_of(self, values) -> np.ndarray:
         """int32 code per value via one sorted search over the str view

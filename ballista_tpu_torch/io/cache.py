@@ -38,6 +38,9 @@ class CacheSource(TableSource):
     def num_partitions(self) -> int:
         return self.inner.num_partitions()
 
+    def source_descriptor(self) -> dict:
+        return self.inner.source_descriptor()
+
     def content_signature(self):
         """Result-cache identity is the INNER data's identity — this
         wrapper adds replay, not different rows."""

@@ -17,6 +17,9 @@ class MemTableSource(TableSource):
         self._schema = schema
         self._partitions = partitions
 
+    def source_descriptor(self) -> dict:
+        return {"kind": "memory", "num_partitions": self.num_partitions()}
+
     def estimated_rows(self) -> Optional[int]:
         return sum(int(b.num_rows) for part in self._partitions for b in part)
 

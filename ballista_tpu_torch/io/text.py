@@ -34,7 +34,10 @@ since equal file sets give equal dictionaries.
 Timing: the parse and the upload of each batch are ``ingest.phase``
 blocks (``elapsed_parse``/``elapsed_h2d`` on the scan's metrics).
 
-Not ported yet: the dictionary registry shared between sources.
+Unlike the JAX package's text scan, this one does not intern its
+dictionaries in ``columnar_registry`` (the Parquet scan and shuffle reads
+do): a source's dictionaries are its own, and the table cache hands a
+new source the cached objects, which keeps graph signatures stable.
 """
 
 from __future__ import annotations
@@ -123,6 +126,14 @@ class DelimitedSource(TableSource):
 
     def num_partitions(self) -> int:
         return len(self._files)
+
+    def source_descriptor(self) -> dict:
+        return {
+            "kind": "tbl" if self._delim == "|" else "csv",
+            "path": self._path,
+            "delimiter": self._delim,
+            "has_header": self._header,
+        }
 
     def _table_signature(self) -> tuple:
         """(basename, size, mtime_ns) of every file of the table, taken

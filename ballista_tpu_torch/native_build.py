@@ -1,14 +1,17 @@
 """Builds the port's native libraries from the sources in the checkout.
 
-Two shared libraries, each with a plain C interface loaded with ctypes:
+Two shared libraries, each with a plain C interface loaded with ctypes,
+and one program:
 
 - ``native/tblscan.cpp`` (the port's own copy of the JAX package's
   scanner) with ``g++``;
-- ``csrc/dense_grouped_sums.cu`` with ``nvcc`` for ``sm_90a``.
+- ``csrc/dense_grouped_sums.cu`` with ``nvcc`` for ``sm_90a``;
+- ``native/shuffle_server.cpp`` (the port's own copy of the JAX
+  package's data-plane daemon) with ``g++``, as an executable.
 
 Outputs go to ``ballista_tpu_torch/_build/`` (listed in ``.gitignore``),
 named by a hash of the source and the command, so an edited source
-rebuilds and a stale library is never loaded. Builds run at first use
+rebuilds and a stale artifact is never loaded. Builds run at first use
 under an ``flock``'d lock file, so concurrent processes build once.
 """
 
@@ -61,6 +64,13 @@ def build_library(name: str, source: str, compiler: List[str],
     """Compile ``source`` (a path relative to the package) into
     ``_build/lib<name>-<hash>.so`` unless that file exists; returns its
     path. Raises ExecutionError with the compiler's output on failure."""
+    return _build(name, source, compiler, flags, "lib{name}-{digest}.so")
+
+
+def _build(name: str, source: str, compiler: List[str], flags: List[str],
+           pattern: str) -> str:
+    """Compile ``source`` into ``_build/`` under ``pattern`` (formatted
+    with the name and a 12-digit hash) unless that file exists."""
     import fcntl
 
     src = os.path.join(PACKAGE_DIR, source)
@@ -68,7 +78,8 @@ def build_library(name: str, source: str, compiler: List[str],
         digest = hashlib.sha1(fh.read())
     digest.update(" ".join(compiler[1:] + flags).encode())
     digest.update(_host_tag())
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
+    out = os.path.join(BUILD_DIR, pattern.format(
+        name=name, digest=digest.hexdigest()[:12]))
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -93,6 +104,17 @@ def build_tblscan() -> str:
         raise ExecutionError("g++ not found: the native scanner cannot be built")
     return build_library("tblscan", os.path.join("native", "tblscan.cpp"),
                          [gxx], GXX_FLAGS)
+
+
+def build_shuffle_server() -> str:
+    """The data-plane daemon ``_build/shuffle_server-<hash>``."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise ExecutionError(
+            "g++ not found: the native shuffle server cannot be built")
+    flags = [f for f in GXX_FLAGS if f not in ("-fPIC", "-shared")]
+    return _build("shuffle_server", os.path.join("native", "shuffle_server.cpp"),
+                  [gxx], flags, "{name}-{digest}")
 
 
 def build_dense_grouped_sums() -> str:

@@ -19,12 +19,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Iterator, List, Optional
 
-import numpy as np
 import torch
 
 from ..cache.donation import (consume_transient, donation_enabled,
                               mark_transient, record_donation)
-from ..columnar import Column, ColumnBatch, Dictionary
+from ..columnar import Column, ColumnBatch
 from ..compile import bucket_capacity, governed
 from ..datatypes import Schema
 from ..errors import ExecutionError
@@ -290,24 +289,14 @@ def donating_call(fn, batch: ColumnBatch, *extra):
 # ---------------------------------------------------------------------------
 
 
-def _unify_dictionaries(dicts: List[Optional[Dictionary]]):
-    """Sorted union of several dictionaries + one int32 remap table per
-    input (None where the input already is the union)."""
-    present = [d for d in dicts if d is not None]
-    union = Dictionary(np.unique(np.concatenate(
-        [d.values_str() for d in present])))
-    remaps = [None if d is None or (len(d) == len(union) and np.array_equal(
-        d.values_str(), union.values_str())) else union.positions_of(d.values)
-        for d in dicts]
-    return union, remaps
-
-
 def concat_batches(schema: Schema, batches: List[ColumnBatch]) -> ColumnBatch:
     """Concatenate batches (same device) into one larger-capacity batch.
 
-    utf8 columns whose batches carry DIFFERENT dictionaries are unified: a
-    sorted union dictionary is built host-side and each batch's codes are
-    remapped by a gather on the device.
+    utf8 columns whose batches carry DIFFERENT dictionaries are unified
+    through the dictionary registry (``columnar_registry.unify``: one
+    cached union per set of contents, so a repeat of the same concat gets
+    the same ``Dictionary`` object) and each batch's codes are remapped by
+    a gather on the device.
 
     Output capacity is the exact SUM of the inputs (not padded up to a
     ladder rung), as in the JAX package.
@@ -327,16 +316,12 @@ def concat_batches(schema: Schema, batches: List[ColumnBatch]) -> ColumnBatch:
         if dict_ is not None and any(
             d is not None and d is not dict_ for d in dicts
         ):
-            dict_, remaps = _unify_dictionaries(dicts)
-            remapped = []
-            for v, remap in zip(values_list, remaps):
-                if remap is None:
-                    remapped.append(v)
-                    continue
-                table = torch.from_numpy(remap).to(dev)
-                idx = v.to(torch.int64).clamp(0, max(len(remap) - 1, 0))
-                remapped.append(table[idx])
-            values_list = remapped
+            from .. import columnar_registry
+
+            dict_, remaps = columnar_registry.unify(dicts)
+            values_list = [
+                v if remap is None else columnar_registry.remap_codes(v, remap)
+                for v, remap in zip(values_list, remaps)]
         vals = torch.cat(values_list)
         vs = [b.columns[i].validity for b in batches]
         if any(v is not None for v in vs):

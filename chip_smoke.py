@@ -1,14 +1,15 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs a
-CUDA card, ``nvcc`` and ``g++``; it imports torch, numpy and the port
-(``ballista_tpu_torch``), never jax or the JAX package, and needs no
+CUDA card, ``nvcc`` and ``g++``; it imports torch, numpy, pyarrow and the
+port (``ballista_tpu_torch``), never jax or the JAX package, and needs no
 pandas. Phases, in order (any failure is an uncaught exception and a
 non-zero exit):
 
 1. card: the name and power limit as nvidia-smi reports them;
-2. build: the CUDA kernel (nvcc, sm_90a) and the native scanner (g++)
-   from the checkout's sources, both compilers started together;
+2. build: the CUDA kernel (nvcc, sm_90a), the native scanner (g++) and
+   the native shuffle server (g++) from the checkout's sources, the
+   three compilers started together;
    then the set-up: TPC-H data at SF1 (``benchmarks/tpch/datagen.py``)
    in ``bench_data/sf1``, reused while its ``.complete`` marker holds the
    current ``DATAGEN_VERSION``;
@@ -114,13 +115,42 @@ non-zero exit):
    ``bench_data/sf0.05``), fused, on the card and through the port on
    the CPU: integer, decimal, date and string columns equal exactly,
    float columns within rtol 1e-6;
-13. in a process of its own, a governed program that cannot be captured
+13. Parquet: the SF1 tables converted once to Parquet in
+   ``bench_data/sf1_parquet`` (``testing/parquet_convert.py``: the port's
+   own ``.tbl`` scan on the CPU and pyarrow, the JAX package converter's
+   layout and column types; reused while its ``.complete`` marker holds),
+   the pyarrow memory pool's backend, the Parquet bytes beside the
+   ``.tbl`` bytes, the host seconds of the Parquet scan's utf8 path on
+   ``l_returnflag``; then q1, q3 and q5 from Parquet on the card, cold and
+   warm from a cleared table cache and governor at the 8192 MB budget:
+   the warm collect served from the table cache (every scan a hit, no
+   fill, no parse) and replaying only; each result equal to the same
+   query over ``.tbl`` on the card and over the same Parquet on the CPU,
+   exactly; kernel launches counted around each collect and every
+   observed call bit-equal to the plain version; prints walls,
+   ``elapsed_parse``, ``elapsed_h2d``, hits and fills;
+14. stages: q1, q3 and q5 at SF1 run stage by stage through Arrow IPC
+   shuffle files (``testing/stages.py``: the stage planner, a protobuf
+   round trip of every stage onto the card, fusion, the hash-split
+   shuffle write and ``ShuffleReaderExec``), twice locally and once with
+   every read fetched through the port's native data-plane server (which
+   must be the ``NativeDataPlane``); every leaf of every deserialized
+   stage on the card; each result equal to the standalone collect on
+   the card (floats within rtol 1e-6); the second run must capture no
+   graph for q3 and q5; kernel launches counted and every observed call
+   bit-equal to the plain version; prints the stage DAG, bytes and host
+   seconds written and read, the staged wall against the standalone warm
+   wall, captures; then one profiled staged q5 (device-to-host and
+   host-to-device copies and bytes) and all 22 queries at SF0.05 staged
+   locally against phase 12's standalone results on the card;
+15. in a process of its own, a governed program that cannot be captured
    (it reads a device value on the host) must raise ``CaptureError``
    rather than run eagerly;
-14. the kernel list, as one JSON line; its times, replicas and VEC are
+16. the kernel list, as one JSON line; its times, replicas and VEC are
     those on q1's main-path inputs, with q5's launches and times beside
-    them, and the launches of q5 through the adapted join and of q1
-    over the streamed lineitem.
+    them, and the launches of q5 through the adapted join, of q1 over
+    the streamed lineitem, of q1 and q5 from Parquet and of the staged
+    q1 and q5.
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -213,6 +243,7 @@ def phase_card(card: str) -> str:
 
 
 def phase_build() -> None:
+    from ballista_tpu_torch import native_build
     from ballista_tpu_torch.io import native
     from ballista_tpu_torch.kernels import dense_sums
 
@@ -230,7 +261,10 @@ def phase_build() -> None:
     threads = [threading.Thread(target=run, args=("dense_grouped_sums (nvcc)",
                                                   dense_sums.build)),
                threading.Thread(target=run, args=("tblscan (g++)",
-                                                  native.build))]
+                                                  native.build)),
+               threading.Thread(target=run, args=(
+                   "shuffle_server (g++)",
+                   native_build.build_shuffle_server))]
     for t in threads:
         t.start()
     for t in threads:
@@ -1106,17 +1140,17 @@ class PinnedSnapshot:
         return len(self.seen)
 
 
-def profile_h2d(df, label: str):
-    """One more collect of ``df`` under ``torch.profiler``: (wall s,
-    card-busy ms, host-to-device copies, their bytes), the bytes read
-    from the trace's memcpy records."""
+def profile_copies(fn, label: str) -> dict:
+    """``fn()`` under ``torch.profiler``: wall s, card-busy ms, and the
+    device-to-host and host-to-device copies with their bytes, read from
+    the trace's memcpy records."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        df.to_pydict()
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
@@ -1130,12 +1164,23 @@ def profile_h2d(df, label: str):
             events = json.load(f)["traceEvents"]
     finally:
         os.remove(path)
-    copies = [e for e in events if e.get("cat") == "gpu_memcpy"
-              and "HtoD" in e.get("name", "")]
-    if any("bytes" not in e.get("args", {}) for e in copies):
-        raise AssertionError(f"{label}: a memcpy record of the trace has "
-                             f"no byte count")
-    return wall, busy, len(copies), sum(e["args"]["bytes"] for e in copies)
+    out = {"wall_s": wall, "busy_ms": busy}
+    for kind in ("DtoH", "HtoD"):
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+                  and kind in e.get("name", "")]
+        if any("bytes" not in e.get("args", {}) for e in copies):
+            raise AssertionError(f"{label}: a memcpy record of the trace "
+                                 f"has no byte count")
+        out[f"{kind.lower()}_copies"] = len(copies)
+        out[f"{kind.lower()}_bytes"] = sum(e["args"]["bytes"] for e in copies)
+    return out
+
+
+def profile_h2d(df, label: str):
+    """One more collect of ``df`` under ``torch.profiler``: (wall s,
+    card-busy ms, host-to-device copies, their bytes)."""
+    out = profile_copies(df.to_pydict, label)
+    return out["wall_s"], out["busy_ms"], out["htod_copies"], out["htod_bytes"]
 
 
 def upload_under_capture(data_dir: str, sql: str, want) -> dict:
@@ -1860,11 +1905,11 @@ def phase_all_queries(data_dir: str):
     cpu = BallistaContext.standalone(device="cpu")
     register_tpch(gpu, data_dir)
     register_tpch(cpu, data_dir)
-    secs = {}
+    secs, results = {}, {}
     for q in QUERIES:
         sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
         t0 = time.perf_counter()
-        got = gpu.sql(sql).to_pydict()
+        got = results[q] = gpu.sql(sql).to_pydict()
         torch.cuda.synchronize()
         secs[q] = time.perf_counter() - t0
         assert_close_results(f"{q} sf{SMALL_SCALE:g} cuda vs cpu", got,
@@ -1872,7 +1917,7 @@ def phase_all_queries(data_dir: str):
         log(f"# {q} sf{SMALL_SCALE:g}: cuda == port on cpu "
             f"({len(next(iter(got.values())))} rows, {secs[q]:.3f} s "
             f"on the card, cold)")
-    return secs
+    return secs, results
 
 
 def profile_query(data_dir: str, q: str) -> None:
@@ -1910,6 +1955,363 @@ def profile_query(data_dir: str, q: str) -> None:
         log(f"#   {ms:9.3f} ms  x{count:<5d} {key[:90]}")
     for line in df.physical_plan().pretty_metrics().splitlines():
         log(f"#   {line}")
+
+
+# -- phase 13 ---------------------------------------------------------------
+
+PARQUET_VERSION = "v1"  # bump when testing/parquet_convert.py's output changes
+STAGED_QUERIES = ("q1", "q3", "q5")
+
+
+def setup_parquet(data_dir: str) -> str:
+    """The TPC-H tables of ``data_dir`` as Parquet in ``<data_dir>_parquet``
+    (``<table>/part-0.parquet``, the JAX package converter's layout and
+    column types), written by the port's own scan on the CPU and pyarrow;
+    reused while its ``.complete`` marker holds this version and the
+    ``.tbl`` data's marker."""
+    import shutil
+
+    from ballista_tpu_torch.testing.parquet_convert import convert_tpch
+
+    out = f"{data_dir}_parquet"
+    marker = os.path.join(out, ".complete")
+    with open(os.path.join(data_dir, ".complete")) as f:
+        want = f"{PARQUET_VERSION} from {f.read().strip()}"
+    have = open(marker).read().strip() if os.path.exists(marker) else None
+    if have != want:
+        shutil.rmtree(out, ignore_errors=True)
+        t0 = time.perf_counter()
+        convert_tpch(data_dir, out)
+        with open(marker, "w") as f:
+            f.write(want)
+        log(f"# set-up: converted {data_dir} to Parquet in "
+            f"{time.perf_counter() - t0:.1f}s")
+    else:
+        log(f"# set-up: reusing {out} ({want})")
+    return out
+
+
+def tree_bytes(path: str, suffix: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files
+               if f.endswith(suffix))
+
+
+def utf8_read_seconds(pq_dir: str) -> dict:
+    """Host seconds of the Parquet scan's utf8 path (``to_pylist`` and
+    the dictionary search of ``io/parquet.py``) on lineitem's
+    ``l_returnflag`` at SF1, one of the two utf8 columns q1 reads."""
+    import pyarrow.parquet as pq
+
+    path = os.path.join(pq_dir, "lineitem", "part-0.parquet")
+    out = {}
+    for col in ("l_returnflag",):
+        t0 = time.perf_counter()
+        arr = pq.read_table(path, columns=[col]).column(0).combine_chunks()
+        t1 = time.perf_counter()
+        vals = np.asarray(["" if v is None else v for v in arr.to_pylist()],
+                          dtype=object)
+        t2 = time.perf_counter()
+        uniq = np.unique(vals)
+        np.searchsorted(uniq.astype(str), vals.astype(str))
+        t3 = time.perf_counter()
+        out[col] = {"rows": len(vals), "read_s": t1 - t0,
+                    "to_pylist_s": t2 - t1, "encode_s": t3 - t2}
+    return out
+
+
+def phase_parquet(data_dir: str, pq_dir: str, want_cpu_tbl: dict):
+    """q1, q3 and q5 at SF1 from Parquet on the card, each cold and warm
+    from a cleared table cache and governor at the 8192 MB budget: the
+    warm collect must be served from the table cache (every scan a hit,
+    no fill, no parse) and replay only; each result equals the same query
+    over ``.tbl`` on the card and over the same Parquet on the CPU,
+    exactly; every observed kernel call bit-equal to the plain version."""
+    import pyarrow as pa
+
+    from ballista_tpu_torch.cache import cache_counters, reset_cache_stats
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import compile_stats, governor
+    from ballista_tpu_torch.io import ipc
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.testing.parquet_convert import (
+        register_tpch_parquet)
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    t_phase = time.perf_counter()
+    ipc._arrow()  # the pool check of the port's first pyarrow use
+    pool = pa.default_memory_pool().backend_name
+    pq_bytes, tbl_bytes = tree_bytes(pq_dir, ".parquet"), tree_bytes(
+        data_dir, ".tbl")
+    log(f"# parquet: pyarrow {pa.__version__}, memory pool {pool}; "
+        f"{pq_bytes:,} bytes of Parquet against {tbl_bytes:,} bytes of .tbl")
+    utf8 = utf8_read_seconds(pq_dir)
+    log(f"# parquet utf8 path at SF1: {json.dumps(utf8)}")
+    set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "8192"})
+    gpu = BallistaContext.standalone()
+    register_tpch_parquet(gpu, pq_dir)
+    tbl = BallistaContext.standalone()
+    register_tpch(tbl, data_dir)
+    cpu = BallistaContext.standalone(device="cpu")
+    register_tpch_parquet(cpu, pq_dir)
+    rows = []
+    launches = {}
+    try:
+        for q in STAGED_QUERIES:
+            sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            residency._reset_for_tests()
+            governor().clear()
+            df = gpu.sql(sql)
+            parts = None
+            for run in ("cold", "warm"):
+                reset_cache_stats()
+                st0 = compile_stats()
+                with KernelCallLog() as spy:
+                    torch.cuda.synchronize()
+                    ds.launch_count = 0
+                    t0 = time.perf_counter()
+                    out = df.to_pydict()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    n_launch = ds.launch_count
+                st1 = compile_stats()
+                check_observed(spy.calls, f"parquet {q} {run}")
+                cc = cache_counters()
+                parse, h2d = scan_phase_seconds(df.physical_plan())
+                parts = scan_partitions(df.physical_plan())
+                row = {"query": q, "run": run, "wall_s": wall,
+                       "parse_s": parse, "h2d_s": h2d,
+                       "hits": cc["table_cache_hits"],
+                       "fills": cc["table_cache_fills"],
+                       "captures": st1["graph_captures"]
+                       - st0["graph_captures"],
+                       "replays": st1["graph_replays"] - st0["graph_replays"],
+                       "kernel_launches": n_launch,
+                       "observed_kernel_calls": len(spy.calls)}
+                rows.append(row)
+                launches[(q, run)] = n_launch
+                log(f"# parquet {q} {run}: {wall:.4f} s, elapsed_parse "
+                    f"{parse:.4f} s, elapsed_h2d {h2d:.4f} s, table cache "
+                    f"{row['hits']} hits / {row['fills']} fills of {parts} "
+                    f"scan partitions, {row['captures']} captures, "
+                    f"{row['replays']} replays, dense_grouped_sums "
+                    f"launches {n_launch}")
+                if q in ("q1", "q5") and n_launch < 2:
+                    raise AssertionError(f"parquet {q} {run}: {n_launch} "
+                                         f"kernel launches, expected >= 2")
+                if run == "cold":
+                    cold = out
+                elif (row["hits"] != parts or row["fills"] or parse
+                        or row["captures"] or not row["replays"]):
+                    raise AssertionError(
+                        f"parquet {q} warm: {row['hits']} hits, "
+                        f"{row['fills']} fills of {parts} partitions, "
+                        f"parse {parse} s, {row['captures']} captures: the "
+                        f"warm collect must be served from the table cache "
+                        f"and replay only")
+            assert_equal_results(f"parquet {q} warm vs cold", out, cold)
+            assert_equal_results(f"parquet {q} vs .tbl on the card", cold,
+                                 tbl.sql(sql).to_pydict())
+            assert_equal_results(f"parquet {q} vs .tbl on the cpu", cold,
+                                 want_cpu_tbl[q])
+            assert_equal_results(f"parquet {q} cuda vs cpu", cold,
+                                 cpu.sql(sql).to_pydict())
+            log(f"# parquet {q}: cuda == .tbl on the card == parquet on the "
+                f"cpu ({len(next(iter(cold.values())))} rows)")
+    finally:
+        set_ingest_env({})
+        residency._reset_for_tests()
+        governor().clear()
+    secs = time.perf_counter() - t_phase
+    log(f"# phase 13 (parquet) took {secs:.1f} s")
+    return {"rows": rows, "utf8": utf8, "pool": pool,
+            "parquet_bytes": pq_bytes, "tbl_bytes": tbl_bytes,
+            "seconds": secs}, launches
+
+
+# -- phase 14 ---------------------------------------------------------------
+
+
+def plan_leaves(plan) -> list:
+    if not plan.children():
+        return [plan]
+    return [leaf for c in plan.children() for leaf in plan_leaves(c)]
+
+
+def check_leaves_on_card(run, label: str) -> int:
+    """Every leaf of every deserialized stage (scans, shuffle readers,
+    empty relations) must live on the card."""
+    n = 0
+    for rec in run.stages:
+        for leaf in plan_leaves(rec.plan):
+            dev = getattr(leaf, "device", None)
+            if dev is None and hasattr(leaf, "source"):
+                dev = getattr(leaf.source, "device", None)
+            if dev is None or torch.device(dev).type != "cuda":
+                raise AssertionError(
+                    f"{label}: stage {rec.stage_id}'s leaf "
+                    f"{type(leaf).__name__} is on {dev}, not the card")
+            n += 1
+    return n
+
+
+def staged_once(ctx, sql: str, work_root: str, label: str, remote=None):
+    """One ``run_staged`` of ``sql`` in a fresh work directory (removed
+    after): (run, wall s, kernel launches, captures, observed calls)."""
+    import shutil
+
+    from ballista_tpu_torch.compile import compile_stats
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.testing.stages import run_staged
+
+    work = os.path.join(work_root, label.replace(" ", "_"))
+    shutil.rmtree(work, ignore_errors=True)
+    st0 = compile_stats()
+    try:
+        with KernelCallLog() as spy:
+            torch.cuda.synchronize()
+            ds.launch_count = 0
+            t0 = time.perf_counter()
+            run = run_staged(ctx, sql, work, remote=remote)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            n_launch = ds.launch_count
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    st1 = compile_stats()
+    check_observed(spy.calls, label)
+    return (run, wall, n_launch,
+            st1["graph_captures"] - st0["graph_captures"], len(spy.calls))
+
+
+def phase_stages(data_dir: str, small_dir: str, small_want: dict):
+    """q1, q3 and q5 at SF1 stage by stage through Arrow IPC shuffle files
+    (``testing/stages.py``): twice locally (the second must capture no
+    graph) and once through the port's native data-plane server (which
+    must be the ``NativeDataPlane``); every deserialized stage's leaves on
+    the card; each result equal to the standalone collect on the card;
+    every observed kernel call bit-equal to the plain version; a profiled
+    staged q5's copies; then all 22 queries at SF0.05, staged locally,
+    against the standalone collect on the card."""
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import governor
+    from ballista_tpu_torch.testing.stages import run_staged
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    t_phase = time.perf_counter()
+    work_root = os.path.join("bench_data", f"stages-{os.getpid()}")
+    set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "8192"})
+    ctx = BallistaContext.standalone()
+    register_tpch(ctx, data_dir)
+    rows = []
+    launches = {}
+    try:
+        for q in STAGED_QUERIES:
+            sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            residency._reset_for_tests()
+            governor().clear()
+            df = ctx.sql(sql)
+            df.to_pydict()  # cold: fills the table cache
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = df.to_pydict()
+            torch.cuda.synchronize()
+            warm_wall = time.perf_counter() - t0
+            row = {"query": q, "standalone_warm_s": warm_wall}
+            for label, remote in (("first", None), ("second", None),
+                                  ("native", "native")):
+                run, wall, n_launch, captures, calls = staged_once(
+                    ctx, sql, work_root, f"staged {q} {label}", remote)
+                leaves = check_leaves_on_card(run, f"staged {q} {label}")
+                assert_close_results(f"staged {q} {label} vs standalone",
+                                     run.result, want)
+                if remote == "native" and run.server != "NativeDataPlane":
+                    raise AssertionError(f"staged {q}: the native phase ran "
+                                         f"{run.server}")
+                if q in ("q1", "q5") and n_launch < 2:
+                    raise AssertionError(f"staged {q} {label}: {n_launch} "
+                                         f"kernel launches, expected >= 2")
+                if label == "second" and q in ("q3", "q5") and captures:
+                    raise AssertionError(
+                        f"staged {q}: the second run captured {captures} "
+                        f"new graphs; shuffle reads must keep dictionary "
+                        f"identity")
+                row[f"{label}_s"] = wall
+                row[f"{label}_captures"] = captures
+                row[f"{label}_launches"] = n_launch
+                row[f"{label}_observed_calls"] = calls
+                launches[(q, label)] = n_launch
+                written = sum(s.bytes_written for s in run.stages)
+                read = sum(s.bytes_read for s in run.stages) \
+                    + run.bytes_read_final
+                row[f"{label}_bytes_written"] = written
+                row[f"{label}_bytes_read"] = read
+                row[f"{label}_write_s"] = sum(s.write_seconds
+                                              for s in run.stages)
+                row[f"{label}_read_s"] = sum(s.read_seconds
+                                             for s in run.stages) \
+                    + run.read_seconds_final
+                row[f"{label}_remote_fetches"] = sum(
+                    s.remote_fetches for s in run.stages)
+                if label == "first":
+                    row["dag"] = [(s.stage_id, s.partitions, s.fan_out,
+                                   s.deps) for s in run.stages]
+                    log(f"# staged {q} DAG (stage, partitions, fan-out, "
+                        f"deps): {row['dag']}")
+                    for s in run.stages:
+                        log(f"#   stage {s.stage_id}: wrote "
+                            f"{s.bytes_written:,} B ({s.rows_written:,} "
+                            f"rows) in {s.write_seconds:.4f} s; read "
+                            f"{s.bytes_read:,} B in {s.read_seconds:.4f} s")
+                log(f"# staged {q} {label}: {wall:.4f} s against the "
+                    f"standalone warm {warm_wall:.4f} s; wrote "
+                    f"{written:,} B in {row[f'{label}_write_s']:.4f} s, "
+                    f"read {read:,} B in {row[f'{label}_read_s']:.4f} s "
+                    f"({row[f'{label}_remote_fetches']} remote fetches, "
+                    f"server {run.server}); {captures} captures, kernel "
+                    f"launches {n_launch}; {leaves} stage leaves on the "
+                    f"card; == standalone")
+            rows.append(row)
+
+        # the copies of one more staged q5 (everything captured already)
+        import shutil
+
+        sql5 = open(os.path.join(QUERY_DIR, "q5.sql")).read()
+        work = os.path.join(work_root, "profiled")
+        try:
+            copies = profile_copies(
+                lambda: run_staged(ctx, sql5, work), "staged-q5")
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        log(f"# staged q5 profiled: {json.dumps(copies)}")
+
+        # all 22 at SF0.05, staged locally, against the standalone collect
+        small = BallistaContext.standalone()
+        register_tpch(small, small_dir)
+        t0 = time.perf_counter()
+        for q in QUERIES:
+            sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            run, _, _, _, _ = staged_once(small, sql, work_root,
+                                          f"staged {q} sf{SMALL_SCALE:g}")
+            check_leaves_on_card(run, f"staged {q} sf{SMALL_SCALE:g}")
+            assert_close_results(f"staged {q} sf{SMALL_SCALE:g} vs "
+                                 f"standalone", run.result, small_want[q])
+        small_s = time.perf_counter() - t0
+        log(f"# staged sf{SMALL_SCALE:g}: all {len(QUERIES)} queries == "
+            f"standalone on the card, {small_s:.1f} s in all")
+    finally:
+        set_ingest_env({})
+        residency._reset_for_tests()
+        governor().clear()
+        import shutil
+
+        shutil.rmtree(work_root, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"# phase 14 (stages) took {secs:.1f} s")
+    return {"rows": rows, "q5_copies": copies, "small_s": small_s,
+            "seconds": secs}, launches
 
 
 # -- main -------------------------------------------------------------------
@@ -1981,7 +2383,12 @@ def main() -> int:
         data_dir, cpu_results["q1"])
     float_errs = phase_float_sf1(data_dir)
     phase_hash_ids(data_dir)
-    small_secs = phase_all_queries(small_dir)
+    small_secs, small_results = phase_all_queries(small_dir)
+    parquet_row, parquet_launches = phase_parquet(
+        data_dir, setup_parquet(data_dir), cpu_results)
+    staged_row, staged_launches = phase_stages(data_dir, small_dir,
+                                               small_results)
+    del small_results
     phase_capture_failure()
     if args.profile:
         for q in ("q1", "q3", "q5"):
@@ -1994,6 +2401,8 @@ def main() -> int:
     log(f"# streaming: {json.dumps(streaming_rows)}")
     log(f"# float sf1 largest relative errors: {json.dumps(float_errs)}")
     log(f"# sf{SMALL_SCALE:g} seconds on the card: {json.dumps(small_secs)}")
+    log(f"# parquet: {json.dumps(parquet_row)}")
+    log(f"# stages: {json.dumps(staged_row)}")
     kernels = [{
         "name": "dense_grouped_sums",
         "route": "cuda",
@@ -2020,6 +2429,10 @@ def main() -> int:
         "q5_launches": q5_launches[0],
         "adaptive_q5_launches": adaptive_q5_launches,
         "streamed_q1_launches": streamed_q1_launches,
+        "parquet_q1_launches": parquet_launches[("q1", "cold")],
+        "parquet_q5_launches": parquet_launches[("q5", "cold")],
+        "staged_q1_launches": staged_launches[("q1", "first")],
+        "staged_q5_launches": staged_launches[("q5", "first")],
         "q5_ms": q5_main["ms"],
         "q5_call_ms": q5_main["call_ms"],
         "q5_plain_ms": q5_main["plain_ms"],
