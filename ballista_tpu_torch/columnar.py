@@ -39,9 +39,6 @@ from .errors import ExecutionError, SchemaError
 # Default physical batch capacity (rows), as in the JAX package.
 DEFAULT_BATCH_CAPACITY = 1 << 20
 
-# largest str view a Dictionary keeps (values_str), as in the JAX package
-_STR_CACHE_CAP_BYTES = 256 << 20
-
 # FNV-1a constants (stable_hashes)
 _FNV_OFFSET = np.uint64(0xCBF29CE484222325)
 _FNV_PRIME = np.uint64(0x100000001B3)
@@ -164,14 +161,10 @@ class Dictionary:
         return Dictionary(uniq), codes.astype(np.int32)
 
     def values_str(self) -> np.ndarray:
-        """Fixed-width ``np.str_`` view of the (sorted) values, cached
-        (up to ``_STR_CACHE_CAP_BYTES``)."""
-        if self._str_cache is not None:
-            return self._str_cache
-        sv = self.values.astype(str)
-        if sv.nbytes <= _STR_CACHE_CAP_BYTES:
-            self._str_cache = sv
-        return sv
+        """Fixed-width ``np.str_`` view of the (sorted) values, cached."""
+        if self._str_cache is None:
+            self._str_cache = self.values.astype(str)
+        return self._str_cache
 
     def _cache_str_view(self, sv: np.ndarray) -> None:
         if self._str_cache is None:
@@ -240,21 +233,6 @@ class Dictionary:
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return f"Dictionary({len(self)} values)"
-
-
-def remap_between(src: Dictionary, dst: Dictionary) -> Optional[np.ndarray]:
-    """int32 table: ``src`` codes -> ``dst`` codes, -1 where a value is
-    absent from ``dst``; None when the two are one dictionary. Exact: one
-    sorted search of ``src``'s values in ``dst``'s (both sorted). The
-    port's own stand-in for the JAX package's dictionary registry remap,
-    computed on the host once per pair by its caller."""
-    if src is dst:
-        return None
-    sv, dv = src.values_str(), dst.values_str()
-    if len(dv) == 0:
-        return np.full(max(len(sv), 1), -1, np.int32)
-    idx = np.minimum(np.searchsorted(dv, sv), len(dv) - 1)
-    return np.where(dv[idx] == sv, idx, -1).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -45,9 +45,8 @@ This registry makes dictionary identity a managed resource, the way
   cached ``values_str()`` views, never per invocation, never over
   object arrays — and served from bounded process-wide caches.
 
-``BALLISTA_DICT_REGISTRY=off`` restores the legacy behavior exactly:
-no interning/stamping, and the unify/remap entry points below fall back
-to the original object-array union code.
+The JAX package's ``BALLISTA_DICT_REGISTRY=off`` switch is not ported:
+the port always runs through the registry.
 
 Invariants:
 
@@ -83,11 +82,6 @@ _MAX_ENTRIES = 256        # table entries (LRU; evicted entries degrade
 _MAX_EPOCHS = 512         # process-wide interned instances (LRU)
 _MAX_REMAPS = 256         # cached pairwise remap tables (LRU)
 _MAX_UNIONS = 64          # cached multi-producer unions (LRU)
-
-
-def enabled() -> bool:
-    return os.environ.get("BALLISTA_DICT_REGISTRY", "on").lower() not in (
-        "off", "0", "false")
 
 
 # ---------------------------------------------------------------------------
@@ -137,7 +131,7 @@ def fingerprint(d: Dictionary) -> str:
 
 def _nul_tails(values, sv: np.ndarray) -> bool:
     """True when any value is corrupted by the str view (trailing
-    U+0000): such sets stay OUTSIDE the registry — legacy object-array
+    U+0000): such sets stay OUTSIDE the registry — object-array
     semantics apply, exactness over speed."""
     return len(sv) > 0 and not np.array_equal(_obj_lens(values),
                                               np.char.str_len(sv))
@@ -266,9 +260,9 @@ class DictionaryRegistry:
         entry. Returns the current version when values are a subset of
         it (callers encode against the RETURNED dictionary's values);
         otherwise appends a superset union version and records the step
-        remap. Registry off -> plain unstamped Dictionary."""
+        remap. Trailing-NUL values -> plain unstamped Dictionary."""
         sv = _as_str(values)
-        if not enabled() or _nul_tails(values, sv):
+        if _nul_tails(values, sv):
             return Dictionary(values)
         entry = self._entry(key)
         with entry.lock:
@@ -303,8 +297,6 @@ class DictionaryRegistry:
     def lookup(self, key: tuple) -> Optional[Dictionary]:
         """Current version for an entry key, if any — lets a fresh
         source instance skip rebuilding values it already paid for."""
-        if not enabled():
-            return None
         with self._lock:
             e = self._entries.get(key)
         if e is None:
@@ -315,7 +307,7 @@ class DictionaryRegistry:
     # -- cross-process stamps (Arrow IPC metadata, AOT output protos) ------
 
     def stamp_of(self, d: Optional[Dictionary]) -> Optional[str]:
-        if d is None or not enabled() or d._reg_epoch is None:
+        if d is None or d._reg_epoch is None:
             return None
         if d._reg_entry_id is None:
             # entry-less registered dictionaries (unify unions, plain
@@ -328,7 +320,7 @@ class DictionaryRegistry:
         """Stamp -> the live in-process instance, or None (caller falls
         back to the shipped values). Resolution is BY CONTENT EPOCH, so
         a stale or foreign stamp can never alias a different value set."""
-        if not stamp or not enabled():
+        if not stamp:
             return None
         epoch = stamp.rsplit(":", 1)[-1]
         with self._lock:
@@ -346,8 +338,7 @@ class DictionaryRegistry:
         value-index construction dominates adoption cost)."""
         sv = _as_str(values)
         lens = _obj_lens(values)
-        if not enabled() or (len(sv) and not np.array_equal(
-                lens, np.char.str_len(sv))):
+        if len(sv) and not np.array_equal(lens, np.char.str_len(sv)):
             return Dictionary(values)
         fp = values_fingerprint(sv, lens)
         with self._lock:
@@ -404,14 +395,11 @@ class DictionaryRegistry:
         across entries — and cached process-wide."""
         if src is dst:
             return None
-        if not enabled():
-            return _searchsorted_remap(src.values_str(), dst.values_str())
         if not (_str_view_exact(src) and _str_view_exact(dst)):
-            # trailing-NUL values: the str views are lossy. The legacy
-            # join remap was str-view-based too, so this matches the
-            # pre-registry semantics exactly — but such pairs must not
-            # enter the content-keyed cache (their fingerprints carry
-            # the object-length plane, their views do not)
+            # trailing-NUL values: the str views are lossy, so such
+            # pairs must not enter the content-keyed cache (their
+            # fingerprints carry the object-length plane, their views
+            # do not)
             return _searchsorted_remap(src.values_str(), dst.values_str())
         sfp, dfp = fingerprint(src), fingerprint(dst)
         if sfp == dfp:
@@ -435,18 +423,16 @@ class DictionaryRegistry:
               ) -> Tuple[Optional[Dictionary], List[Optional[np.ndarray]]]:
         """Shared target dictionary for a set of batches' dictionaries +
         per-input int32 remap (None = codes already valid in the
-        target). Empty/None inputs pass codes through unchanged, like
-        the legacy union code did. Never returns -1s: the target always
-        covers every input."""
+        target). Empty/None inputs pass codes through unchanged. Never
+        returns -1s: the target always covers every input."""
         present = [d for d in dicts if d is not None and len(d)]
         if not present:
             return next((d for d in dicts if d is not None), None), \
                 [None] * len(dicts)
-        if not enabled() or not all(_str_view_exact(d) for d in present):
-            # registry off, or a member carries trailing-NUL values the
-            # str views cannot represent: the object-array union is the
-            # only lossless path (and what the pre-registry sites did)
-            return self._legacy_union(dicts)
+        if not all(_str_view_exact(d) for d in present):
+            # a member carries trailing-NUL values the str views cannot
+            # represent: the object-array union is the only lossless path
+            return self._object_union(dicts)
         # one distinct content -> that instance, no remaps at all
         fps = [fingerprint(d) for d in present]
         first = present[0]
@@ -489,11 +475,9 @@ class DictionaryRegistry:
         return [None if (d is None or len(d) == 0 or d is target)
                 else self.remap_between(d, target) for d in dicts]
 
-    def _legacy_union(self, dicts):
-        """The pre-registry behavior, verbatim semantics: sorted union
-        over OBJECT arrays + per-member searchsorted remaps (the
-        ``BALLISTA_DICT_REGISTRY=off`` escape hatch and the
-        determinism-sweep control)."""
+    def _object_union(self, dicts):
+        """Sorted union over OBJECT arrays + per-member searchsorted
+        remaps, for members whose str views are lossy."""
         union = np.unique(np.concatenate(
             [np.asarray(d.values, dtype=object) for d in dicts
              if d is not None and len(d)]
@@ -533,10 +517,7 @@ def _as_str(values) -> np.ndarray:
 
 
 def _with_str_cache(d: Dictionary, sv: np.ndarray) -> Dictionary:
-    from .columnar import _STR_CACHE_CAP_BYTES
-
-    if sv.nbytes <= _STR_CACHE_CAP_BYTES:  # same bound values_str() uses
-        d._cache_str_view(sv)
+    d._cache_str_view(sv)
     d._str_exact = True  # registry members passed the NUL-tail guard
     return d
 
@@ -585,33 +566,17 @@ def unify_parts(
     """Shuffle-read variant: [(codes, Dictionary-or-raw-values)] ->
     (target, remapped codes per part). Raw value arrays (legacy wire
     format) are adopted first so equal producers still collapse to one
-    instance. Registry off restores the pre-registry code verbatim:
-    ONE union Dictionary, raw arrays for the parts (no per-part
-    value-index construction)."""
-    if enabled():
-        dicts: List[Optional[Dictionary]] = [
-            dv if isinstance(dv, Dictionary) else REGISTRY.adopt(None, dv)
-            for _codes, dv in parts]
-        target, remaps = REGISTRY.unify(dicts)
-        if target is None:
-            target = Dictionary([])
-        out_codes = []
-        for (codes, _dv), remap in zip(parts, remaps):
-            if remap is None:
-                out_codes.append(codes)
-            else:
-                out_codes.append(remap[codes].astype(np.int32))
-        return target, out_codes
-    vals = [dv.values if isinstance(dv, Dictionary)
-            else np.asarray(dv, dtype=object) for _codes, dv in parts]
-    union = np.unique(np.concatenate(vals)) if vals \
-        else np.asarray([], object)
-    union_str = union.astype(str)
+    instance."""
+    dicts: List[Optional[Dictionary]] = [
+        dv if isinstance(dv, Dictionary) else REGISTRY.adopt(None, dv)
+        for _codes, dv in parts]
+    target, remaps = REGISTRY.unify(dicts)
+    if target is None:
+        target = Dictionary([])
     out_codes = []
-    for (codes, _dv), v in zip(parts, vals):
-        if len(v) == 0:
+    for (codes, _dv), remap in zip(parts, remaps):
+        if remap is None:
             out_codes.append(codes)
-            continue
-        remap = np.searchsorted(union_str, v.astype(str))
-        out_codes.append(remap[codes].astype(np.int32))
-    return Dictionary(union), out_codes
+        else:
+            out_codes.append(remap[codes].astype(np.int32))
+    return target, out_codes

@@ -624,14 +624,11 @@ def _finish_dict_column(name: str, st: Optional[dict], meta: dict):
     # equal content shares ONE instance
     stamp = meta.get(b"ballista.dict", b"").decode() or None
     resolved = _reg.REGISTRY.resolve(stamp)
-    if resolved is None and _reg.enabled():
+    if resolved is None:
         resolved = _reg.REGISTRY.adopt(
             stamp,
             np.asarray(st["first"].to_pylist(), dtype=object))
-    if resolved is not None:
-        return codes, resolved
-    # registry off: legacy raw value array
-    return codes, np.asarray(st["first"].to_pylist(), dtype=object)
+    return codes, resolved
 
 
 def unify_dictionaries(

@@ -31,10 +31,12 @@ from __future__ import annotations
 import os
 from typing import Iterator, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .. import columnar_registry
 from ..columnar import (Column, ColumnBatch, Dictionary, empty_batch,
-                        remap_between, round_capacity)
+                        round_capacity)
 from ..compile import bucket_capacity
 from ..datatypes import Schema
 from ..errors import ExecutionError, NotImplementedError_
@@ -542,7 +544,9 @@ class JoinExec(PhysicalPlan):
             # pair per key column stays pinned
             cached = self._remap_cache.get(bcol)
             if cached is None or cached[0] is not bd or cached[1] is not pd_:
-                remap = remap_between(pd_, bd)
+                remap = columnar_registry.remap_between(pd_, bd)
+                if remap is None:  # equal content: identity map
+                    remap = np.arange(len(pd_), dtype=np.int64)
                 if len(remap) == 0:
                     remap = [-1]
                 cached = (bd, pd_, torch.as_tensor(

@@ -23,7 +23,7 @@ from ballista_tpu.kernels.expr_eval import Evaluator as RefEvaluator
 from ballista_tpu.physical.operators import compute_partition_ids as ref_ids
 
 import ballista_tpu_torch as bt
-from ballista_tpu_torch import columnar
+from ballista_tpu_torch import columnar, columnar_registry
 from ballista_tpu_torch.kernels import hashing, join
 from ballista_tpu_torch.kernels.expr_eval import Evaluator
 from ballista_tpu_torch.physical.operators import compute_partition_ids
@@ -226,13 +226,13 @@ def test_stable_hashes_equal_the_reference():
 def test_remap_between_dictionaries():
     src = columnar.Dictionary(sorted(["AIR", "MAIL", "RAIL", "SHIP", "ZEP"]))
     dst = columnar.Dictionary(sorted(["AIR", "FOB", "RAIL", "SHIP", "TRUCK"]))
-    got = columnar.remap_between(src, dst)
+    got = columnar_registry.remap_between(src, dst)
     want = _searchsorted_remap(src.values_str(), dst.values_str())
     assert got.dtype == want.dtype
     np.testing.assert_array_equal(got, want)
-    assert columnar.remap_between(src, src) is None
+    assert columnar_registry.remap_between(src, src) is None
     np.testing.assert_array_equal(
-        columnar.remap_between(src, columnar.Dictionary([])),
+        columnar_registry.remap_between(src, columnar.Dictionary([])),
         _searchsorted_remap(src.values_str(), np.zeros(0, str)))
 
 

@@ -215,6 +215,19 @@ def test_utf8_join_key_across_dictionaries(how):
     assert list(got["v"]) == ([1, 3] if how == "inner" else [0, 1, 2, 3])
 
 
+def test_utf8_join_key_over_equal_dictionaries():
+    """Two tables whose key dictionaries hold the same values but are
+    separate objects: the registry's remap says the codings are equal,
+    and the join reads the probe's codes as they are."""
+    got = _both(
+        {"l": ([("name", "utf8"), ("v", "int64")],
+               {"name": ["bravo", "alpha", "bravo"], "v": [0, 1, 2]}),
+         "r": ([("label", "utf8"), ("w", "int64")],
+               {"label": ["alpha", "bravo"], "w": [10, 20]})},
+        "select v, w from l join r on name = label order by v")
+    assert list(got["v"]) == [0, 1, 2] and list(got["w"]) == [20, 10, 20]
+
+
 def test_three_key_left_join_with_duplicates():
     got = _both(
         {"l": ([(c, "int64") for c in "abcv"],
