@@ -31,7 +31,9 @@ Fill protocol (:meth:`DeviceTableCache.begin_fill`): scan sources add
 batches as they are emitted and ``commit()`` only after the partition
 completed — a partial entry (abandoned generator, mid-scan cancel,
 budget refusal) is aborted and released, because serving a truncated
-partition would be a correctness bug, not a cache miss.
+partition would be a correctness bug, not a cache miss. A cancelled
+query commits no entry at all: the bound cancel token is checked once
+more right before the commit (``serve_or_fill``).
 
 Knobs (read at call time): ``BALLISTA_TABLE_CACHE`` (default on),
 ``BALLISTA_TABLE_CACHE_BUDGET_MB`` (default 512, per device),
@@ -421,6 +423,7 @@ def serve_or_fill(key: Optional[tuple], produce, outcome_sink=None
     end up pinned are NOT donation-eligible; refused/unpinned ones are
     marked transient. ``outcome_sink(outcome)`` (optional) receives
     ``"hit" | "filled" | "miss"`` for the scan's metrics annotation."""
+    from ..lifecycle import check_cancel
     from .donation import mark_transient
 
     cache = process_table_cache()
@@ -441,6 +444,11 @@ def serve_or_fill(key: Optional[tuple], produce, outcome_sink=None
                 mark_transient(batch)
             yield batch
         if filler is not None:
+            # a cancelled query commits nothing, even a partition whose
+            # last chunk passed its cancel check before the cancel
+            # landed: check the bound token once more, right before
+            # publishing (raises QueryCancelled, and the fill aborts)
+            check_cancel()
             committed = filler.commit()
     finally:
         if filler is not None and not committed:

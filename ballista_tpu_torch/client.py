@@ -1,9 +1,16 @@
-"""Client API: BallistaContext + DataFrame, standalone mode.
+"""Client API: BallistaContext + DataFrame, standalone and remote.
 
-The port of the standalone half of the JAX package's ``client.py``: plans
+The port of the JAX package's ``client.py``. A standalone context plans
 and executes in-process on one device. The context's device defaults to
 ``"cuda"`` and is explicit everywhere below it — sources create their
 batches there, and no code path moves to another device on its own.
+
+A remote context (``BallistaContext.remote(host, port)``) submits each
+query to a scheduler (``distributed/client.py``: submit, poll, fetch the
+final partitions), whose executors run it on their own devices. As in
+the JAX package, the client still resolves uncorrelated scalar
+subqueries itself before submitting, on the context's device; cancel,
+progress, system tables and ``df.profile()`` go to the scheduler.
 
 A collect runs as the JAX package's standalone collect does: fusion,
 the opt-in result cache, every scan primed on the ingest pool before the
@@ -11,8 +18,8 @@ first pull (``ingest.prime_plan``; scans serve from the device table
 cache when they can), the standalone adaptive pass over the primed tree
 (``adaptive/standalone.py``, once per kept plan, then re-fused), one
 cancel token bound around it (``ctx.cancel()`` from another thread), and
-``cancel_plan`` in a ``finally``. Remote (cluster) mode, prewarming,
-profiling, EXPLAIN and the latency ledger are not ported yet.
+``cancel_plan`` in a ``finally``. Prewarming, standalone profiling and
+system tables, EXPLAIN and the latency ledger are not ported yet.
 """
 
 from __future__ import annotations
@@ -66,10 +73,21 @@ class BallistaContext:
     """Entry point: table registration + SQL/DataFrame construction."""
 
     def __init__(self, settings: Optional[Dict[str, str]] = None,
-                 device="cuda"):
-        self.mode = "standalone"
+                 device="cuda", mode: str = "standalone",
+                 host: str = "localhost", port: int = 50050):
+        self.mode = mode
+        self.host = host
+        self.port = port
         self.device = _resolve_device(device)
         self.settings = dict(settings or {})
+        if mode == "remote":
+            # per-session metering on the scheduler: every query of this
+            # context is accounted to one session id, which travels with
+            # the submitted settings (a caller's "session.id" wins)
+            import uuid
+
+            self.session_id = self.settings.setdefault(
+                "session.id", uuid.uuid4().hex[:12])
         self._catalog: Dict[str, CatalogTable] = {}
         # SQL plan cache: repeated identical queries reuse the planned
         # DataFrame (and its physical plan); cleared on catalog change
@@ -77,6 +95,12 @@ class BallistaContext:
         # in-flight collects' cancel tokens (ctx.cancel reaches them)
         self._lifecycle_lock = threading.Lock()
         self._active_tokens: List = []
+        # job-id sinks of in-flight remote collects (ctx.cancel and
+        # job_progress reach their jobs through them), and the last
+        # remote job's id and per-stage metrics
+        self._active_job_sinks: List[list] = []
+        self._last_job_id = None
+        self._last_query_metrics = None
         # warm-path attribution of this context's collects: scan
         # partitions served by the table cache, results served by the
         # result cache
@@ -89,6 +113,15 @@ class BallistaContext:
         """In-process context on ``device`` ("cuda" by default; raises
         when there is no card, unless the caller asks for "cpu")."""
         return BallistaContext(settings or None, device=device)
+
+    @staticmethod
+    def remote(host: str, port: int = 50050, device="cuda",
+               **settings) -> "BallistaContext":
+        """Context submitting to the scheduler at ``host:port``. Its
+        ``device`` ("cuda" by default) is where it resolves scalar
+        subqueries before submitting; the executors pick their own."""
+        return BallistaContext(settings or None, device=device,
+                               mode="remote", host=host, port=port)
 
     # -- registration -------------------------------------------------------
 
@@ -164,8 +197,31 @@ class BallistaContext:
         src = ParquetSource(path, schema, device=self.device, **kw)
         return DataFrame(self, TableScan("parquet:" + path, src))
 
+    def _system_source(self, name: str):
+        """Scan source for a ``system.*`` table of a remote context: its
+        rows are fetched from the SCHEDULER at scan or ship time, so
+        they reflect cluster state. Standalone system tables are not
+        ported yet (ROADMAP queue 1 item 11)."""
+        from .observability.systables import SystemTableSource
+
+        if self.mode != "remote":
+            return None
+        host, port = self.host, self.port
+
+        def fetch():
+            from .distributed.client import fetch_system_table
+
+            return fetch_system_table(host, port, name)
+
+        return SystemTableSource(name, fetcher=fetch, device=self.device)
+
     def table(self, name: str) -> "DataFrame":
         if name not in self._catalog:
+            from .observability.systables import is_system_table
+
+            if self.mode == "remote" and is_system_table(name):
+                return DataFrame(
+                    self, TableScan(name, self._system_source(name)))
             raise PlanError(f"unknown table {name!r}")
         t = self._catalog[name]
         if t.plan is not None:  # registered DataFrame view: inline a copy
@@ -180,6 +236,12 @@ class BallistaContext:
         cached = self._plan_cache.get(query)
         if cached is not None:
             return cached
+        if (self.mode == "remote"
+                and self.settings.get("plan.server") in ("on", "true", "1")
+                and not query.lstrip().lower().startswith("create")):
+            # raw-SQL submission: the scheduler plans against the catalog
+            # shipped with the query (DDL still registers client-side)
+            return DataFrame(self, None, raw_sql=query)
         stmt = parse_sql(query)
         if isinstance(stmt, CreateExternalTable):
             sch = make_schema(*[(n, t) for n, t in stmt.columns])
@@ -193,8 +255,13 @@ class BallistaContext:
             else:
                 raise PlanError(f"STORED AS {stmt.stored_as} unsupported")
             return DataFrame(self, None)
-        df = DataFrame(self, SqlPlanner(self._catalog).plan(stmt))
-        self._plan_cache[query] = df
+        planner = SqlPlanner(self._catalog,
+                             system_provider=self._system_source)
+        df = DataFrame(self, planner.plan(stmt))
+        # plans over system.* tables are not cached: re-issuing the SQL
+        # must see fresh rows (observability/systables.py)
+        if not _scans_system_table(df._plan):
+            self._plan_cache[query] = df
         return df
 
     # -- execution ----------------------------------------------------------
@@ -205,26 +272,98 @@ class BallistaContext:
         return PlannerOptions.from_settings(self.settings, self.device)
 
     @contextmanager
-    def _track_lifecycle(self, token):
-        """Register an in-flight collect's cancel token for the duration
-        of the collect, so a concurrent ``ctx.cancel()`` can reach it."""
+    def _track_lifecycle(self, obj, registry: list):
+        """Register an in-flight query's cancel handle (a CancelToken,
+        or a remote collect's job-id sink) for the duration of the
+        collect, so a concurrent ``ctx.cancel()`` can reach it."""
         with self._lifecycle_lock:
-            self._active_tokens.append(token)
+            registry.append(obj)
         try:
-            yield token
+            yield obj
         finally:
             with self._lifecycle_lock:
-                self._active_tokens.remove(token)
+                registry.remove(obj)
 
     def cancel(self, reason: str = "client") -> int:
-        """Cooperatively cancel this context's in-flight collects (call
-        from another thread). Each stops at its next batch boundary and
-        raises :class:`errors.QueryCancelled`; its scan producers stop at
-        their next chunk. Returns how many collects this call
-        cancelled."""
+        """Cooperatively cancel this context's in-flight queries (call
+        from another thread). Standalone collects stop at their next
+        batch boundary and raise :class:`errors.QueryCancelled`; their
+        scan producers stop at their next chunk. Remote collects get a
+        best-effort ``CancelJob`` for every job this context has in
+        flight. Returns how many queries or jobs this call cancelled."""
         with self._lifecycle_lock:
             tokens = list(self._active_tokens)
-        return sum(bool(t.cancel(reason)) for t in tokens)
+            sinks = list(self._active_job_sinks)
+        n = sum(bool(t.cancel(reason)) for t in tokens)
+        if sinks:
+            import logging
+
+            from .distributed.client import CancelRequested, cancel_job
+
+            for jid in [j for sink in sinks for j in list(sink)
+                        if isinstance(j, str)]:
+                try:
+                    n += bool(cancel_job(self.host, self.port, jid, reason))
+                except Exception:  # noqa: BLE001 - best-effort
+                    logging.getLogger("ballista.lifecycle").warning(
+                        "CancelJob(%s) failed", jid, exc_info=True)
+            # a collect sleeping between admission retries has no live
+            # job to cancel: the sentinel stops it from resubmitting
+            for sink in sinks:
+                sink.append(CancelRequested(reason))
+        return n
+
+    def _remote_collect(self, plan: Optional[LogicalPlan],
+                        raw_sql: Optional[str] = None, on_progress=None):
+        """Submit ``plan`` (or ``raw_sql`` with the catalog), wait for
+        the job and fetch its final partitions: a pandas DataFrame."""
+        from .distributed.client import remote_collect, remote_sql_collect
+
+        sink: list = []
+        jsink: list = []
+        # jsink receives the job id at SUBMIT time, so a concurrent
+        # ctx.cancel() can cancel the job while this thread waits
+        with self._track_lifecycle(jsink, self._active_job_sinks):
+            if raw_sql is not None:
+                out = remote_sql_collect(
+                    self.host, self.port, raw_sql, self._catalog,
+                    self.settings, metrics_out=sink, job_id_out=jsink,
+                    on_progress=on_progress)
+            else:
+                out = remote_collect(
+                    self.host, self.port, plan, self.settings,
+                    metrics_out=sink, job_id_out=jsink,
+                    on_progress=on_progress)
+        self._last_query_metrics = sink[0] if sink else None
+        self._last_job_id = next(
+            (j for j in jsink if isinstance(j, str)), None)
+        return out
+
+    def job_progress(self, job_id: Optional[str] = None):
+        """Live progress snapshot of a remote job (per-stage fractions,
+        ETA, task counts; the JAX package's shape), by default of this
+        context's in-flight job or else its last one; None when the
+        scheduler knows nothing of it. Standalone progress is not
+        ported yet (ROADMAP queue 1 item 11)."""
+        if self.mode != "remote":
+            return None
+        jid = job_id
+        if not jid:
+            with self._lifecycle_lock:
+                inflight = [j for sink in self._active_job_sinks
+                            for j in list(sink) if isinstance(j, str)]
+            jid = (inflight[-1] if inflight else None) or self._last_job_id
+        if not jid:
+            return None
+        from .distributed.client import fetch_job_progress
+
+        return fetch_job_progress(self.host, self.port, jid)
+
+    def last_query_metrics(self):
+        """Per-stage operator metrics of this context's last remote
+        query (:class:`observability.QueryMetrics`, the scheduler's
+        aggregation over completed tasks), or None."""
+        return self._last_query_metrics
 
     def _collect(self, plan: LogicalPlan, phys=None):
         """Plan (unless the caller passes a cached physical plan) and
@@ -235,7 +374,8 @@ class BallistaContext:
         from .lifecycle import CancelToken, bind_token, slow_query_killer
 
         token = CancelToken()
-        with self._track_lifecycle(token), bind_token(token), \
+        with self._track_lifecycle(token, self._active_tokens), \
+                bind_token(token), \
                 slow_query_killer(token):
             return self._collect_governed(plan, phys)
 
@@ -328,6 +468,39 @@ class BallistaContext:
         self.cache_hits["result"] += int(result_hit)
 
 
+def _scans_system_table(plan: Optional[LogicalPlan]) -> bool:
+    from .observability.systables import SystemTableSource
+
+    if plan is None:
+        return False
+    if isinstance(plan, TableScan) and \
+            isinstance(plan.source, SystemTableSource):
+        return True
+    return any(_scans_system_table(c) for c in plan.children())
+
+
+def _frame_to_pydict(frame, schema: Schema) -> Dict[str, np.ndarray]:
+    """A remote result (pandas) as the dict of numpy arrays a standalone
+    ``to_pydict`` returns: pandas turns dates into ``datetime64[s]`` and
+    string NULLs into NaN, so both are put back by the result schema."""
+    out = {}
+    for f in schema.fields:
+        if f.name not in frame:  # no partition came back
+            out[f.name] = np.empty(0, dtype=object)
+            continue
+        col = frame[f.name].to_numpy()
+        kind = f.dtype.kind
+        if kind == "date32":
+            col = col.astype("datetime64[D]")
+        elif kind == "timestamp_ns":
+            col = col.astype("datetime64[ns]")
+        elif kind == "utf8":
+            col = np.asarray([v if isinstance(v, str) else None
+                              for v in col], dtype=object)
+        out[f.name] = col
+    return out
+
+
 def _plan_nodes(plan) -> list:
     out = [plan]
     for c in plan.children():
@@ -338,9 +511,13 @@ def _plan_nodes(plan) -> list:
 class DataFrame:
     """Lazy relational frame over a logical plan."""
 
-    def __init__(self, ctx: BallistaContext, plan: Optional[LogicalPlan]):
+    def __init__(self, ctx: BallistaContext, plan: Optional[LogicalPlan],
+                 raw_sql: Optional[str] = None):
         self.ctx = ctx
         self._plan = plan
+        # server-side planning (remote ``plan.server``): the SQL text is
+        # submitted with the catalog and planned by the scheduler
+        self._raw_sql = raw_sql
         # the physical plan is kept across collects of this frame
         self._phys = None
 
@@ -348,6 +525,12 @@ class DataFrame:
 
     @property
     def plan(self) -> LogicalPlan:
+        if self._plan is None and self._raw_sql is not None:
+            # a server-planned frame used through the DataFrame API:
+            # plan locally on demand; collect still submits the SQL
+            planner = SqlPlanner(self.ctx._catalog,
+                                 system_provider=self.ctx._system_source)
+            self._plan = planner.plan(parse_sql(self._raw_sql))
         if self._plan is None:
             raise PlanError("this DataFrame carries no plan (DDL result)")
         return self._plan
@@ -414,9 +597,14 @@ class DataFrame:
 
     # -- execution ----------------------------------------------------------
 
-    def to_pydict(self) -> Dict[str, np.ndarray]:
+    def to_pydict(self, on_progress=None) -> Dict[str, np.ndarray]:
         """Execute and return the result as a dict of numpy arrays
-        (column name -> logical values). Needs no pandas."""
+        (column name -> logical values). Standalone, needs no pandas; a
+        remote result arrives as pandas first. ``on_progress`` (remote)
+        receives live progress snapshots off the status poll."""
+        if self.ctx.mode == "remote":
+            return _frame_to_pydict(self.collect(on_progress=on_progress),
+                                    self.schema())
         out, self._phys = self.ctx._collect(self.plan, phys=self._phys)
         return out
 
@@ -425,17 +613,71 @@ class DataFrame:
         included) — see :meth:`BallistaContext.cancel`."""
         return self.ctx.cancel(reason)
 
-    def collect(self):
-        """Execute and return a pandas DataFrame."""
+    def collect(self, on_progress=None):
+        """Execute and return a pandas DataFrame. Remote frames submit
+        their SQL text (``plan.server``) or their logical plan."""
+        if self.ctx.mode == "remote":
+            return self.ctx._remote_collect(
+                None if self._raw_sql is not None else self.plan,
+                raw_sql=self._raw_sql, on_progress=on_progress)
         import pandas as pd
 
         return pd.DataFrame(self.to_pydict())
+
+    def profile(self, path: Optional[str] = None,
+                label: Optional[str] = None) -> str:
+        """Run a remote frame and write the scheduler-merged profile
+        artifact of its job (Chrome trace: the scheduler's spans and
+        every executor's task windows) locally; returns its path.
+        Standalone profiling is not ported yet (ROADMAP queue 1 item
+        11)."""
+        import time as _time
+
+        from .distributed.client import SchedulerClient, fetch_job_profile
+        from .errors import ClusterError, NotImplementedError_
+        from .observability import profiler as obs_profiler
+        from .observability.export import write_artifact_file
+
+        if self.ctx.mode != "remote":
+            raise NotImplementedError_(
+                "standalone df.profile() is not ported yet (ROADMAP "
+                "queue 1 item 11)")
+        self.collect()
+        job_id = self.ctx._last_job_id
+        if not job_id:
+            raise ExecutionError("no job id recorded for the profiled query")
+        # the client can see completion before the scheduler finalizes
+        # the job's profile window: retry while it is partial or absent
+        deadline = _time.time() + 10.0
+        sched = SchedulerClient(self.ctx.host, self.ctx.port)
+        try:
+            while True:
+                try:
+                    art = fetch_job_profile(self.ctx.host, self.ctx.port,
+                                            job_id, client=sched)
+                except ClusterError:
+                    if _time.time() > deadline:
+                        raise
+                    _time.sleep(0.25)
+                    continue
+                if not (art.get("distributed") or {}).get("partial") or \
+                        _time.time() > deadline:
+                    break
+                _time.sleep(0.25)
+        finally:
+            sched.close()
+        if label:
+            art["label"] = label
+        return write_artifact_file(art, out_dir=obs_profiler.profile_dir(),
+                                   out_path=path)
 
     def to_pandas(self):
         return self.collect()
 
     def count(self) -> int:
         agg = Aggregate([], [ex.count().alias("__n")], self.plan)
+        if self.ctx.mode == "remote":
+            return int(self.ctx._remote_collect(agg)["__n"][0])
         out, _ = self.ctx._collect(agg)
         return int(out["__n"][0])
 

@@ -473,13 +473,18 @@ class GovernedFunction:
     call signature, and per-entry accounting. Shared across operator
     instances with the same signature."""
 
-    __slots__ = ("key", "fn", "capture", "calls", "programs", "_lock")
+    __slots__ = ("key", "fn", "capture", "calls", "builds",
+                 "build_seconds", "programs", "_lock")
 
     def __init__(self, key: tuple, fn: Callable):
         self.key = key
         self.fn = fn
         self.capture = CAPTURE.get(key[0] if key else "", False)
         self.calls = 0
+        # programs built (first calls: warm-up, and capture on a card)
+        # and their seconds, for system.compile
+        self.builds = 0
+        self.build_seconds = 0.0
         self.programs: "OrderedDict[Any, Any]" = OrderedDict()
         self._lock = threading.Lock()
 
@@ -541,6 +546,8 @@ class GovernedFunction:
                 out = self.fn(*args)
         secs = _PERF() - t0
         with self._lock:
+            self.builds += 1
+            self.build_seconds += secs
             self.programs[sig] = prog
             bound = self._programs_per_entry()
             while bound > 0 and len(self.programs) > bound:
@@ -655,6 +662,24 @@ class CompileGovernor:
     def namespace_sizes(self) -> Dict[str, int]:
         with self._lock:
             return {ns: len(s) for ns, s in self._spaces.items()}
+
+    def entry_rows(self) -> list:
+        """Per-entry rows of ``system.compile``, in the JAX package's
+        columns: a "compile" here is a program built (a warm-up, and a
+        capture on a card); the port has no persistent cache and no
+        AOT artifacts, so those columns are 0."""
+        with self._lock:
+            snap = [(ns, gf) for ns, space in self._spaces.items()
+                    for gf in space.values()]
+        return [{
+            "namespace": ns,
+            "signature": _render_key(gf.key),
+            "calls": gf.calls,
+            "compiles": gf.builds,
+            "compile_seconds": round(gf.build_seconds, 6),
+            "persistent_cache_hits": 0,
+            "aot_loads": 0,
+        } for ns, gf in snap]
 
     def clear(self, namespace: Optional[str] = None) -> None:
         """Drop entries, and with them their programs and graphs."""

@@ -1,8 +1,11 @@
-"""The port's distributed data plane: stage planning, partition
-locations, the shuffle file server and the shuffle memory governor.
+"""The port's distributed runtime: scheduler (control plane), executors
+(data plane), cluster state and the shuffle data plane.
 
-Copies of the JAX package's ``distributed/{planner,types,spill,
-dataplane}.py`` (the data plane builds the port's own native daemon).
-The scheduler and executor are not ported yet (ROADMAP queue 1 item 9):
-``testing/stages.py`` runs a query stage by stage without them.
+The JAX package's ``distributed/`` on torch: the scheduler plans and
+cuts queries into stages on the CPU, executors pull tasks and run them
+on their device (``ExecutorConfig.device``, "cuda" by default), and
+stage outputs cross between executors as Arrow IPC files served by the
+data plane (the port's own native daemon, or the Python server). The
+mesh fast path (``mesh_group.py``) is not ported (ROADMAP queue 1 item
+10).
 """

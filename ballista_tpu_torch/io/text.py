@@ -34,10 +34,11 @@ since equal file sets give equal dictionaries.
 Timing: the parse and the upload of each batch are ``ingest.phase``
 blocks (``elapsed_parse``/``elapsed_h2d`` on the scan's metrics).
 
-Unlike the JAX package's text scan, this one does not intern its
-dictionaries in ``columnar_registry`` (the Parquet scan and shuffle reads
-do): a source's dictionaries are its own, and the table cache hands a
-new source the cached objects, which keeps graph signatures stable.
+As in the JAX package, the dictionaries are interned in
+``columnar_registry`` under the table's files (``file_entry_key``): every
+source over the same files shares one instance per column, and shuffle
+files written from a scan's columns carry the registry's stamp, as the
+JAX package's do (byte-identical files).
 """
 
 from __future__ import annotations
@@ -107,6 +108,12 @@ class DelimitedSource(TableSource):
         self._path = path
         self._files = _list_files(path)
         self._dicts: Dict[str, Dictionary] = {}
+        # dictionary-registry entry of this table's files (the JAX
+        # package's key, so the stamps its shuffle files carry agree)
+        from .. import columnar_registry
+
+        self._dict_key_base = columnar_registry.file_entry_key(
+            "text", path, self._files)
         # cached batches' dictionaries known equal in value to this
         # source's: id -> (theirs, ours), holding both alive
         self._equal_dicts: Dict[int, tuple] = {}
@@ -186,6 +193,15 @@ class DelimitedSource(TableSource):
             return False
         return size > STREAM_CHUNK_BYTES
 
+    def _interned(self, colname: str, values) -> Dictionary:
+        """The registry's dictionary of this table's ``colname`` (a
+        sibling source over the same files may have interned it)."""
+        from .. import columnar_registry
+
+        key = self._dict_key_base + (colname,)
+        d = columnar_registry.REGISTRY.lookup(key)
+        return d if d is not None else columnar_registry.intern(key, values)
+
     def _table_dictionaries(self, colnames: List[str]) -> Dict[str, Dictionary]:
         """Table-wide sorted dictionaries for several utf8 columns, built
         by ONE native pre-pass over every file, range by range over a
@@ -212,7 +228,7 @@ class DelimitedSource(TableSource):
                 for n in need:
                     vals = (np.unique(np.concatenate(uniq[n]))
                             if uniq[n] else np.zeros(0, dtype=str))
-                    self._dicts[n] = Dictionary(vals.astype(object))
+                    self._dicts[n] = self._interned(n, vals.astype(object))
             return {n: self._dicts[n] for n in colnames}
 
     def scan(self, partition: int, projection: Optional[Sequence[str]] = None):
@@ -275,7 +291,7 @@ class DelimitedSource(TableSource):
                 with self._dict_lock:  # adopt the file's sorted dictionary
                     for m in utf8:
                         if m not in self._dicts:
-                            self._dicts[m] = Dictionary(fdicts[m])
+                            self._dicts[m] = self._interned(m, fdicts[m])
                         dicts[m] = self._dicts[m]
             else:
                 dicts = self._table_dictionaries(utf8)

@@ -60,6 +60,7 @@ class PlannerOptions:
     ``join_swap``: cost-based inner-join orientation.
     ``agg_partitions``: hash-shuffled aggregation (partial -> Repartition
     on the group keys -> final) into this many partitions; None merges.
+    ``cost_notes``: what the scheduler's cost feedback changed.
     """
 
     device: torch.device = torch.device("cpu")
@@ -67,6 +68,9 @@ class PlannerOptions:
     join_partitions: int = 8
     join_swap: bool = True
     agg_partitions: Optional[int] = None
+    # the cluster's cost-feedback notes on these options
+    # (distributed/controlplane/costs.py), for EXPLAIN once ported
+    cost_notes: tuple = ()
 
     @staticmethod
     def from_settings(settings: Optional[Dict[str, str]],

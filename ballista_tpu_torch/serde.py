@@ -6,8 +6,8 @@ port's ``proto/`` is a byte-identical copy; both register one
 plan or a source takes an explicit ``device`` (keyword, required) and
 hands it to every source and operator it builds. Plan kinds whose
 modules are not ported yet raise :class:`SerdeError` naming their
-ROADMAP queue 1 item: the mesh operators (item 10), EXPLAIN and system
-tables (item 11).
+ROADMAP queue 1 item: the mesh operators (item 10) and EXPLAIN (item
+11). A system-table source is rebuilt from the rows it shipped with.
 
 Equivalent of the reference's serde layer (reference:
 rust/core/src/serde/logical_plan/{to_proto.rs,from_proto.rs} and
@@ -262,9 +262,12 @@ def source_from_proto(p: pb.TableSourceDesc, *, device) -> lp.TableSource:
     if p.kind == "parquet":
         return ParquetSource(p.path, schema, device=device)
     if p.kind == "system":
-        raise SerdeError(
-            "system table sources are not ported yet: ROADMAP queue 1 "
-            "item 11")
+        import json
+
+        from .observability.systables import SystemTableSource
+
+        return SystemTableSource(p.path, rows=json.loads(p.payload.decode()),
+                                 device=device)
     raise SerdeError(f"source kind {p.kind!r} is not remotable")
 
 

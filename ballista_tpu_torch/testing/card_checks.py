@@ -8,13 +8,14 @@ non-zero exit:
    built with the flags the port builds it with: each instantiation's
    registers, and no stack frame and no spills;
 2. the card-only tests of ``tests/test_torch_dense_sums.py``,
-   ``tests/test_torch_compile_governor.py`` and
-   ``tests/test_torch_ingest.py`` (their ``test_cuda_*`` functions: the
+   ``tests/test_torch_compile_governor.py``, ``tests/test_torch_ingest.py``
+   and ``tests/test_torch_cluster.py`` (their ``test_cuda_*`` functions: the
    kernel against its plain version; governed programs captured as CUDA
    graphs — outputs that survive later replays, the kernel counted and
    observed on every replay; pinned asynchronous uploads on producer
    streams while programs are captured, and ``record_stream`` keeping a
-   block from reuse while a delayed consumer reads it) under pytest,
+   block from reuse while a delayed consumer reads it; a cluster q5
+   with the progress sampler running while tasks capture) under pytest,
    which must all pass: a skip fails here. Those files also hold
    the comparisons with the JAX package and import jax and the JAX
    package at their top, which a card's machine need not have and the
@@ -34,7 +35,8 @@ from ..native_build import BUILD_DIR, NVCC_FLAGS, PACKAGE_DIR, find_nvcc
 
 TEST_FILES = [os.path.join("tests", "test_torch_dense_sums.py"),
               os.path.join("tests", "test_torch_compile_governor.py"),
-              os.path.join("tests", "test_torch_ingest.py")]
+              os.path.join("tests", "test_torch_ingest.py"),
+              os.path.join("tests", "test_torch_cluster.py")]
 STAND_INS = ("jax", "jax.numpy", "ballista_tpu", "ballista_tpu.kernels",
              "ballista_tpu.kernels.aggregate",
              "ballista_tpu.kernels.pallas_agg")

@@ -129,28 +129,36 @@ non-zero exit):
    exactly; kernel launches counted around each collect and every
    observed call bit-equal to the plain version; prints walls,
    ``elapsed_parse``, ``elapsed_h2d``, hits and fills;
-14. stages: q1, q3 and q5 at SF1 run stage by stage through Arrow IPC
-   shuffle files (``testing/stages.py``: the stage planner, a protobuf
-   round trip of every stage onto the card, fusion, the hash-split
-   shuffle write and ``ShuffleReaderExec``), twice locally and once with
-   every read fetched through the port's native data-plane server (which
-   must be the ``NativeDataPlane``); every leaf of every deserialized
-   stage on the card; each result equal to the standalone collect on
-   the card (floats within rtol 1e-6); the second run must capture no
-   graph for q3 and q5; kernel launches counted and every observed call
-   bit-equal to the plain version; prints the stage DAG, bytes and host
-   seconds written and read, the staged wall against the standalone warm
-   wall, captures; then one profiled staged q5 (device-to-host and
-   host-to-device copies and bytes) and all 22 queries at SF0.05 staged
-   locally against phase 12's standalone results on the card;
+14. cluster: a ``LocalCluster(num_executors=2, concurrent_tasks=2)`` in
+   this process (the scheduler plans on the CPU, the executors run their
+   tasks on the card and serve shuffle files through the port's native
+   data-plane server, which must be the ``NativeDataPlane``), queried
+   through ``BallistaContext.remote``. q1, q3 and q5 at SF1 with
+   lineitem and orders split line-wise into 4 files each (in
+   ``bench_data/sf1_split``, cut from the files of the set-up), twice:
+   each result equal to the standalone collect on the card (floats
+   within rtol 1e-6); every leaf of every task plan the executors
+   deserialized on the card; both executors ran tasks; the second run
+   captures no graph; kernel launches counted around each collect and
+   every observed call bit-equal to the plain version; prints the tasks
+   of each stage per executor, the replanner's decisions, the shuffle
+   bytes written and read and the cluster wall against the standalone
+   warm wall. Then q5 with every read fetched through the data-plane
+   sockets, one profiled cluster q5 (card-busy share, device-to-host and
+   host-to-device copies and bytes), all 22 queries at SF0.05 through
+   the cluster against phase 12's standalone results on the card, and
+   ``python -m ballista_tpu_torch.distributed.executor_main --local`` as
+   a subprocess on the card: it answers q1 at SF0.05 through
+   ``BallistaContext.remote`` and exits 0 through the drain path on
+   SIGTERM;
 15. in a process of its own, a governed program that cannot be captured
    (it reads a device value on the host) must raise ``CaptureError``
    rather than run eagerly;
 16. the kernel list, as one JSON line; its times, replicas and VEC are
     those on q1's main-path inputs, with q5's launches and times beside
     them, and the launches of q5 through the adapted join, of q1 over
-    the streamed lineitem, of q1 and q5 from Parquet and of the staged
-    q1 and q5.
+    the streamed lineitem, of q1 and q5 from Parquet and of q1 and q5
+    through the cluster's executor tasks (their first runs).
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -2139,80 +2147,289 @@ def plan_leaves(plan) -> list:
     return [leaf for c in plan.children() for leaf in plan_leaves(c)]
 
 
-def check_leaves_on_card(run, label: str) -> int:
-    """Every leaf of every deserialized stage (scans, shuffle readers,
-    empty relations) must live on the card."""
+def check_plans_on_card(plans, label: str) -> int:
+    """Every leaf of every task plan an executor deserialized (scans,
+    shuffle readers, empty relations) must live on the card."""
     n = 0
-    for rec in run.stages:
-        for leaf in plan_leaves(rec.plan):
+    for plan in plans:
+        for leaf in plan_leaves(plan):
             dev = getattr(leaf, "device", None)
             if dev is None and hasattr(leaf, "source"):
                 dev = getattr(leaf.source, "device", None)
             if dev is None or torch.device(dev).type != "cuda":
                 raise AssertionError(
-                    f"{label}: stage {rec.stage_id}'s leaf "
-                    f"{type(leaf).__name__} is on {dev}, not the card")
+                    f"{label}: a task plan's leaf {type(leaf).__name__} "
+                    f"is on {dev}, not the card")
             n += 1
     return n
 
 
-def staged_once(ctx, sql: str, work_root: str, label: str, remote=None):
-    """One ``run_staged`` of ``sql`` in a fresh work directory (removed
-    after): (run, wall s, kernel launches, captures, observed calls)."""
-    import shutil
+class TaskPlanLog:
+    """Records every task plan the executors of this process run (as
+    deserialized and fused) while it is entered."""
 
-    from ballista_tpu_torch.compile import compile_stats
+    def __enter__(self):
+        from ballista_tpu_torch.distributed.executor import Executor
+
+        self.plans = []
+        self._real = real = Executor.execute_partition
+        plans = self.plans
+
+        def recording(executor, pid, plan, shuffle=None):
+            plans.append(plan)
+            return real(executor, pid, plan, shuffle)
+
+        Executor.execute_partition = recording
+        return self
+
+    def __exit__(self, *exc):
+        from ballista_tpu_torch.distributed.executor import Executor
+
+        Executor.execute_partition = self._real
+        return False
+
+
+def split_lines(src: str, out_dir: str, parts: int) -> None:
+    """``src`` cut at line boundaries into ``parts`` files of about equal
+    size in ``out_dir`` (kept while its marker names the source's size
+    and mtime)."""
+    st = os.stat(src)
+    want = f"{os.path.basename(src)} {st.st_size} {st.st_mtime_ns} {parts}"
+    marker = os.path.join(out_dir, ".complete")
+    if os.path.exists(marker) and open(marker).read().strip() == want:
+        return
+    os.makedirs(out_dir, exist_ok=True)
+    with open(src, "rb") as f:
+        data = f.read()
+    start = 0
+    for i in range(parts):
+        end = len(data) if i == parts - 1 else \
+            data.index(b"\n", (len(data) * (i + 1)) // parts) + 1
+        with open(os.path.join(out_dir, f"part-{i}.tbl"), "wb") as f:
+            f.write(data[start:end])
+        start = end
+    with open(marker, "w") as f:
+        f.write(want)
+
+
+CLUSTER_SPLIT = ("lineitem", "orders")
+CLUSTER_PARTS = 4
+
+
+def cluster_context(cluster, data_dir: str, split_dir: Optional[str] = None):
+    """A remote context of ``cluster`` over the TPC-H tables of
+    ``data_dir``, the tables of ``CLUSTER_SPLIT`` read from ``split_dir``
+    when given."""
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.testing.tpch_schema import (TPCH_PKS,
+                                                        TPCH_SCHEMAS,
+                                                        register_tpch)
+
+    ctx = BallistaContext.remote("localhost", cluster.port)
+    register_tpch(ctx, data_dir)
+    for t in CLUSTER_SPLIT if split_dir else ():
+        ctx.register_tbl(t, os.path.join(split_dir, t), TPCH_SCHEMAS[t],
+                         primary_key=TPCH_PKS[t])
+    return ctx
+
+
+def tasks_by_stage(cluster, job: str) -> dict:
+    """stage id -> {executor id (8 chars): tasks completed there}."""
+    out = {}
+    for sid in cluster.state.stage_ids(job):
+        per = {}
+        for t in cluster.state.get_task_statuses(job, sid):
+            key = (t.executor_id or "?")[:8]
+            per[key] = per.get(key, 0) + 1
+        out[sid] = per
+    return out
+
+
+def plan_shape(cluster, job: str) -> list:
+    """Per stage in order: tasks, shuffle fan-out, version and reader
+    layouts — what a re-planned run (cost feedback, the re-planner)
+    changes."""
+    shape = []
+    for sid in cluster.state.stage_ids(job):
+        row = cluster.state.get_stage_plan(job, sid)
+        shape.append((row.num_partitions,
+                      row.shuffle_spec[1] if row.shuffle_spec else 0,
+                      row.version, sorted((row.reader_layouts or {}).items())))
+    return shape
+
+
+def replanner_notes(cluster, job: str) -> list:
+    """The replanner's decisions of a job: the stages it rewrote, their
+    versions, shuffle specs and reader layouts."""
+    notes = []
+    for sid in cluster.state.stage_ids(job):
+        row = cluster.state.get_stage_plan(job, sid)
+        if row.version:
+            notes.append({"stage": sid, "version": row.version,
+                          "shuffle_spec": row.shuffle_spec is not None,
+                          "layouts": {d: len(lay) for d, lay in
+                                      (row.reader_layouts or {}).items()}})
+    return notes
+
+
+def shuffle_bytes(ctx) -> tuple:
+    """(bytes written by non-final stages' tasks, bytes their readers
+    read) of the context's last job, from the scheduler's per-stage
+    metrics."""
+    qm = ctx.last_query_metrics()
+    if qm is None:
+        raise AssertionError("the cluster reported no stage metrics")
+    last = max(qm.stage_ids())
+    written = read = 0
+    for op in qm.operators():
+        m = op["metrics"]
+        if op["operator"] == "ShuffleWrite" or (
+                op["operator"] == "PartitionWrite" and op["stage_id"] != last):
+            written += int(m.get("bytes_written", 0))
+        read += int(m.get("bytes_read", 0))
+    return written, read
+
+
+def check_executors(cluster) -> None:
+    """The executors run on the card and serve shuffle files through the
+    port's native data-plane server (``start_data_plane`` falls back to
+    the Python server when the binary fails)."""
+    from ballista_tpu_torch.distributed.dataplane import NativeDataPlane
+
+    servers = {type(e._data_plane).__name__ for e in cluster.executors}
+    if servers != {NativeDataPlane.__name__}:
+        raise AssertionError(f"the executors' data planes are {servers}")
+    devices = {str(e.config.device) for e in cluster.executors}
+    if devices != {"cuda"}:
+        raise AssertionError(f"the executors run on {devices}")
+
+
+def cluster_once(cluster, ctx, sql: str, label: str):
+    """One cluster collect of ``sql``: (result, wall s, kernel launches,
+    graph captures, observed kernel calls, task plans)."""
+    from ballista_tpu_torch.compile import compile_stats, governor
     from ballista_tpu_torch.kernels import dense_sums as ds
-    from ballista_tpu_torch.testing.stages import run_staged
 
-    work = os.path.join(work_root, label.replace(" ", "_"))
-    shutil.rmtree(work, ignore_errors=True)
     st0 = compile_stats()
-    try:
-        with KernelCallLog() as spy:
-            torch.cuda.synchronize()
-            ds.launch_count = 0
-            t0 = time.perf_counter()
-            run = run_staged(ctx, sql, work, remote=remote)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n_launch = ds.launch_count
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    built0 = {(r["namespace"], r["signature"]): r["compiles"]
+              for r in governor().entry_rows()}
+    with KernelCallLog() as spy, TaskPlanLog() as plans:
+        torch.cuda.synchronize()
+        ds.launch_count = 0
+        t0 = time.perf_counter()
+        out = ctx.sql(sql).to_pydict()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_launch = ds.launch_count
     st1 = compile_stats()
     check_observed(spy.calls, label)
-    return (run, wall, n_launch,
-            st1["graph_captures"] - st0["graph_captures"], len(spy.calls))
+    grew = [f"{r['namespace']} {r['signature'][:120]}"
+            for r in governor().entry_rows()
+            if r["compiles"] > built0.get((r["namespace"], r["signature"]),
+                                          0)]
+    if st1["graph_captures"] > st0["graph_captures"] and grew:
+        log(f"# {label}: programs built in entries {grew[:12]}")
+    return (out, wall, n_launch,
+            st1["graph_captures"] - st0["graph_captures"], len(spy.calls),
+            plans.plans)
 
 
-def phase_stages(data_dir: str, small_dir: str, small_want: dict):
-    """q1, q3 and q5 at SF1 stage by stage through Arrow IPC shuffle files
-    (``testing/stages.py``): twice locally (the second must capture no
-    graph) and once through the port's native data-plane server (which
-    must be the ``NativeDataPlane``); every deserialized stage's leaves on
-    the card; each result equal to the standalone collect on the card;
-    every observed kernel call bit-equal to the plain version; a profiled
-    staged q5's copies; then all 22 queries at SF0.05, staged locally,
-    against the standalone collect on the card."""
+def phase_cluster_binary(small_dir: str, want_q1) -> dict:
+    """``python -m ballista_tpu_torch.distributed.executor_main --local``
+    on the card: its embedded scheduler answers q1 at SF0.05, and SIGTERM
+    ends it through the drain path with exit code 0."""
+    import re
+    import signal
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ballista_tpu_torch.distributed.executor_main",
+         "--local", "--metrics-port", "-1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        port = None
+        deadline = time.time() + 120
+        while port is None and time.time() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            m = re.search(r"embedded scheduler on localhost:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+        if port is None:
+            raise AssertionError("the executor binary printed no scheduler "
+                                 "port:\n" + "".join(lines))
+        ctx = BallistaContext.remote("localhost", port)
+        register_tpch(ctx, small_dir, tables=["lineitem"])
+        q1 = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+        t1 = time.perf_counter()
+        got = ctx.sql(q1).to_pydict()
+        q1_s = time.perf_counter() - t1
+        assert_close_results("binary q1 vs standalone", got, want_q1)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+        lines.append(out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    text = "".join(lines)
+    if proc.returncode != 0 or "(graceful drain)" not in text:
+        raise AssertionError(f"the executor binary did not drain on SIGTERM "
+                             f"(exit {proc.returncode}):\n{text[-3000:]}")
+    device_line = next((ln for ln in text.splitlines()
+                        if "device=" in ln), "")
+    if "device=cuda" not in device_line:
+        raise AssertionError(f"the executor binary is not on the card: "
+                             f"{device_line!r}")
+    secs = time.perf_counter() - t0
+    log(f"# binary: executor_main --local answered q1 at sf{SMALL_SCALE:g} "
+        f"in {q1_s:.4f} s (== standalone) and drained on SIGTERM (exit 0); "
+        f"{secs:.1f} s in all")
+    return {"q1_s": q1_s, "seconds": secs}
+
+
+def phase_cluster(data_dir: str, small_dir: str, small_want: dict):
+    """The cluster path on the card: a ``LocalCluster(num_executors=2,
+    concurrent_tasks=2)`` in this process (executors on "cuda", the
+    scheduler on the CPU), queried through ``BallistaContext.remote``.
+    q1, q3 and q5 at SF1 (lineitem and orders split into 4 files each)
+    twice; q5 with every read through the data-plane socket; one
+    profiled cluster q5; all 22 queries at SF0.05; then the executor
+    binary."""
     from ballista_tpu_torch.cache import residency
     from ballista_tpu_torch.client import BallistaContext
     from ballista_tpu_torch.compile import governor
-    from ballista_tpu_torch.testing.stages import run_staged
+    from ballista_tpu_torch.distributed.executor import LocalCluster
+    from ballista_tpu_torch.physical.shuffle import ShuffleReaderExec
     from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
     t_phase = time.perf_counter()
-    work_root = os.path.join("bench_data", f"stages-{os.getpid()}")
+    split_dir = os.path.join("bench_data", f"sf{SCALE:g}_split")
+    t0 = time.perf_counter()
+    for t in CLUSTER_SPLIT:
+        split_lines(os.path.join(data_dir, t, "partition0.tbl"),
+                    os.path.join(split_dir, t), CLUSTER_PARTS)
+    log(f"# cluster set-up: {', '.join(CLUSTER_SPLIT)} split into "
+        f"{CLUSTER_PARTS} files each in {time.perf_counter() - t0:.1f} s")
     set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "8192"})
-    ctx = BallistaContext.standalone()
-    register_tpch(ctx, data_dir)
-    rows = []
-    launches = {}
+    residency._reset_for_tests()
+    governor().clear()
+    standalone = BallistaContext.standalone()
+    register_tpch(standalone, data_dir)
+    cluster = LocalCluster(num_executors=2, concurrent_tasks=2)
+    rows, launches = [], {}
     try:
+        check_executors(cluster)
+        ctx = cluster_context(cluster, data_dir, split_dir)
         for q in STAGED_QUERIES:
             sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
-            residency._reset_for_tests()
-            governor().clear()
-            df = ctx.sql(sql)
+            df = standalone.sql(sql)
             df.to_pydict()  # cold: fills the table cache
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2220,98 +2437,113 @@ def phase_stages(data_dir: str, small_dir: str, small_want: dict):
             torch.cuda.synchronize()
             warm_wall = time.perf_counter() - t0
             row = {"query": q, "standalone_warm_s": warm_wall}
-            for label, remote in (("first", None), ("second", None),
-                                  ("native", "native")):
-                run, wall, n_launch, captures, calls = staged_once(
-                    ctx, sql, work_root, f"staged {q} {label}", remote)
-                leaves = check_leaves_on_card(run, f"staged {q} {label}")
-                assert_close_results(f"staged {q} {label} vs standalone",
-                                     run.result, want)
-                if remote == "native" and run.server != "NativeDataPlane":
-                    raise AssertionError(f"staged {q}: the native phase ran "
-                                         f"{run.server}")
+            shape = None
+            for label in ("first", "second", "third"):
+                done0 = [e.tasks_completed for e in cluster.executors]
+                out, wall, n_launch, captures, calls, plans = cluster_once(
+                    cluster, ctx, sql, f"cluster {q} {label}")
+                done = [e.tasks_completed - d
+                        for e, d in zip(cluster.executors, done0)]
+                leaves = check_plans_on_card(plans, f"cluster {q} {label}")
+                assert_close_results(f"cluster {q} {label} vs standalone",
+                                     out, want)
+                if min(done) == 0:
+                    raise AssertionError(f"cluster {q} {label}: tasks per "
+                                         f"executor {done}; both must run")
                 if q in ("q1", "q5") and n_launch < 2:
-                    raise AssertionError(f"staged {q} {label}: {n_launch} "
+                    raise AssertionError(f"cluster {q} {label}: {n_launch} "
                                          f"kernel launches, expected >= 2")
-                if label == "second" and q in ("q3", "q5") and captures:
+                job = ctx._last_job_id
+                # the scheduler's cost feedback may re-plan a repeated
+                # query (other partition counts); a run planned as the
+                # one before it must capture nothing
+                prev, shape = shape, plan_shape(cluster, job)
+                same = prev is not None and prev == shape
+                if label == "third" and not same:
                     raise AssertionError(
-                        f"staged {q}: the second run captured {captures} "
-                        f"new graphs; shuffle reads must keep dictionary "
-                        f"identity")
-                row[f"{label}_s"] = wall
-                row[f"{label}_captures"] = captures
-                row[f"{label}_launches"] = n_launch
-                row[f"{label}_observed_calls"] = calls
+                        f"cluster {q}: the third run's stages {shape} differ "
+                        f"from the second's {prev}")
+                if same and captures:
+                    raise AssertionError(
+                        f"cluster {q} {label}: planned as the run before it "
+                        f"but captured {captures} new graphs")
+                written, read = shuffle_bytes(ctx)
+                row[label] = {
+                    "wall_s": wall, "captures": captures,
+                    "launches": n_launch, "observed_calls": calls,
+                    "tasks_per_executor": done, "task_plans": len(plans),
+                    "planned_as_before": same,
+                    "plan_shape": [s[:3] for s in shape],
+                    "leaves_on_card": leaves,
+                    "tasks_by_stage": tasks_by_stage(cluster, job),
+                    "replanner": replanner_notes(cluster, job),
+                    "shuffle_bytes_written": written,
+                    "shuffle_bytes_read": read,
+                }
                 launches[(q, label)] = n_launch
-                written = sum(s.bytes_written for s in run.stages)
-                read = sum(s.bytes_read for s in run.stages) \
-                    + run.bytes_read_final
-                row[f"{label}_bytes_written"] = written
-                row[f"{label}_bytes_read"] = read
-                row[f"{label}_write_s"] = sum(s.write_seconds
-                                              for s in run.stages)
-                row[f"{label}_read_s"] = sum(s.read_seconds
-                                             for s in run.stages) \
-                    + run.read_seconds_final
-                row[f"{label}_remote_fetches"] = sum(
-                    s.remote_fetches for s in run.stages)
-                if label == "first":
-                    row["dag"] = [(s.stage_id, s.partitions, s.fan_out,
-                                   s.deps) for s in run.stages]
-                    log(f"# staged {q} DAG (stage, partitions, fan-out, "
-                        f"deps): {row['dag']}")
-                    for s in run.stages:
-                        log(f"#   stage {s.stage_id}: wrote "
-                            f"{s.bytes_written:,} B ({s.rows_written:,} "
-                            f"rows) in {s.write_seconds:.4f} s; read "
-                            f"{s.bytes_read:,} B in {s.read_seconds:.4f} s")
-                log(f"# staged {q} {label}: {wall:.4f} s against the "
-                    f"standalone warm {warm_wall:.4f} s; wrote "
-                    f"{written:,} B in {row[f'{label}_write_s']:.4f} s, "
-                    f"read {read:,} B in {row[f'{label}_read_s']:.4f} s "
-                    f"({row[f'{label}_remote_fetches']} remote fetches, "
-                    f"server {run.server}); {captures} captures, kernel "
-                    f"launches {n_launch}; {leaves} stage leaves on the "
-                    f"card; == standalone")
+                log(f"# cluster {q} {label}: {wall:.4f} s against the "
+                    f"standalone warm {warm_wall:.4f} s; stages (tasks, "
+                    f"fan-out, version) {row[label]['plan_shape']}"
+                    f"{'' if same or prev is None else ' (re-planned)'}; "
+                    f"tasks by stage and "
+                    f"executor {row[label]['tasks_by_stage']}; replanner "
+                    f"{row[label]['replanner']}; shuffle wrote {written:,} B, "
+                    f"read {read:,} B; {captures} captures, kernel launches "
+                    f"{n_launch} ({calls} observed, bit-equal); {leaves} "
+                    f"task-plan leaves on the card; == standalone")
             rows.append(row)
 
-        # the copies of one more staged q5 (everything captured already)
-        import shutil
-
+        # q5 with every read through the data-plane socket
         sql5 = open(os.path.join(QUERY_DIR, "q5.sql")).read()
-        work = os.path.join(work_root, "profiled")
+        want5 = standalone.sql(sql5).to_pydict()
+        ShuffleReaderExec.FORCE_REMOTE = True
         try:
-            copies = profile_copies(
-                lambda: run_staged(ctx, sql5, work), "staged-q5")
+            out, wall, n_launch, _, _, plans = cluster_once(
+                cluster, ctx, sql5, "cluster q5 sockets")
         finally:
-            shutil.rmtree(work, ignore_errors=True)
-        log(f"# staged q5 profiled: {json.dumps(copies)}")
+            ShuffleReaderExec.FORCE_REMOTE = False
+        check_plans_on_card(plans, "cluster q5 sockets")
+        assert_close_results("cluster q5 sockets vs standalone", out, want5)
+        fetches = sum(int(op["metrics"].get("remote_fetches", 0))
+                      for op in ctx.last_query_metrics().operators())
+        if fetches == 0:
+            raise AssertionError("cluster q5 sockets: no remote fetch")
+        sockets = {"wall_s": wall, "remote_fetches": fetches,
+                   "launches": n_launch}
+        log(f"# cluster q5 through the data-plane sockets: {wall:.4f} s, "
+            f"{fetches} remote fetches, kernel launches {n_launch}; "
+            f"== standalone")
 
-        # all 22 at SF0.05, staged locally, against the standalone collect
-        small = BallistaContext.standalone()
-        register_tpch(small, small_dir)
+        # one profiled cluster q5 (everything captured already)
+        copies = profile_copies(lambda: ctx.sql(sql5).to_pydict(),
+                                "cluster-q5")
+        copies["busy_share"] = copies["busy_ms"] / 1e3 / copies["wall_s"]
+        log(f"# cluster q5 profiled: {json.dumps(copies)}")
+
+        # all 22 at SF0.05 through the cluster, against phase 12
+        small = cluster_context(cluster, small_dir)
         t0 = time.perf_counter()
-        for q in QUERIES:
-            sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
-            run, _, _, _, _ = staged_once(small, sql, work_root,
-                                          f"staged {q} sf{SMALL_SCALE:g}")
-            check_leaves_on_card(run, f"staged {q} sf{SMALL_SCALE:g}")
-            assert_close_results(f"staged {q} sf{SMALL_SCALE:g} vs "
-                                 f"standalone", run.result, small_want[q])
+        with TaskPlanLog() as plans:
+            for q in QUERIES:
+                sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+                assert_close_results(f"cluster {q} sf{SMALL_SCALE:g} vs "
+                                     f"standalone", small.sql(sql).to_pydict(),
+                                     small_want[q])
+        check_plans_on_card(plans.plans, f"cluster sf{SMALL_SCALE:g}")
         small_s = time.perf_counter() - t0
-        log(f"# staged sf{SMALL_SCALE:g}: all {len(QUERIES)} queries == "
-            f"standalone on the card, {small_s:.1f} s in all")
+        log(f"# cluster sf{SMALL_SCALE:g}: all {len(QUERIES)} queries == "
+            f"standalone on the card, {small_s:.1f} s in all, "
+            f"{len(plans.plans)} tasks")
     finally:
+        cluster.shutdown()
         set_ingest_env({})
         residency._reset_for_tests()
         governor().clear()
-        import shutil
-
-        shutil.rmtree(work_root, ignore_errors=True)
+    binary = phase_cluster_binary(small_dir, small_want["q1"])
     secs = time.perf_counter() - t_phase
-    log(f"# phase 14 (stages) took {secs:.1f} s")
-    return {"rows": rows, "q5_copies": copies, "small_s": small_s,
-            "seconds": secs}, launches
+    log(f"# phase 14 (cluster) took {secs:.1f} s")
+    return {"rows": rows, "sockets_q5": sockets, "q5_copies": copies,
+            "small_s": small_s, "binary": binary, "seconds": secs}, launches
 
 
 # -- main -------------------------------------------------------------------
@@ -2386,8 +2618,8 @@ def main() -> int:
     small_secs, small_results = phase_all_queries(small_dir)
     parquet_row, parquet_launches = phase_parquet(
         data_dir, setup_parquet(data_dir), cpu_results)
-    staged_row, staged_launches = phase_stages(data_dir, small_dir,
-                                               small_results)
+    cluster_row, cluster_launches = phase_cluster(data_dir, small_dir,
+                                                  small_results)
     del small_results
     phase_capture_failure()
     if args.profile:
@@ -2402,7 +2634,7 @@ def main() -> int:
     log(f"# float sf1 largest relative errors: {json.dumps(float_errs)}")
     log(f"# sf{SMALL_SCALE:g} seconds on the card: {json.dumps(small_secs)}")
     log(f"# parquet: {json.dumps(parquet_row)}")
-    log(f"# stages: {json.dumps(staged_row)}")
+    log(f"# cluster: {json.dumps(cluster_row)}")
     kernels = [{
         "name": "dense_grouped_sums",
         "route": "cuda",
@@ -2431,8 +2663,8 @@ def main() -> int:
         "streamed_q1_launches": streamed_q1_launches,
         "parquet_q1_launches": parquet_launches[("q1", "cold")],
         "parquet_q5_launches": parquet_launches[("q5", "cold")],
-        "staged_q1_launches": staged_launches[("q1", "first")],
-        "staged_q5_launches": staged_launches[("q5", "first")],
+        "cluster_q1_launches": cluster_launches[("q1", "first")],
+        "cluster_q5_launches": cluster_launches[("q5", "first")],
         "q5_ms": q5_main["ms"],
         "q5_call_ms": q5_main["call_ms"],
         "q5_plain_ms": q5_main["plain_ms"],

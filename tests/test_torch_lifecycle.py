@@ -141,3 +141,42 @@ def test_cancel_with_nothing_in_flight(tpch_dir):
     assert ctx.cancel() == 0
     out = ctx.sql(sql("q1")).to_pydict()
     assert_equals_reference(out, reference_result(tpch_dir, "q1"))
+
+
+def test_cancel_after_a_partitions_last_check_commits_nothing(tpch_dir,
+                                                              monkeypatch):
+    """The interleaving behind ROADMAP queue 3 item 8, forced: a scan
+    producer passes its last chunk's cancel check, the query is
+    cancelled while that chunk uploads, and the partition then completes.
+    The fill must not commit (the token is checked again before the
+    commit), and the consumer sees the cancel."""
+    import os
+
+    from ballista_tpu_torch.columnar import ColumnBatch
+    from ballista_tpu_torch.ingest.pipeline import PrefetchHandle
+    from ballista_tpu_torch.lifecycle import CancelToken, bind_token
+    from ballista_tpu_torch.testing.tpch_schema import TPCH_SCHEMAS
+    from ballista_tpu_torch.io import TblSource
+
+    src = TblSource(os.path.join(tpch_dir, "nation"), TPCH_SCHEMAS["nation"],
+                    device="cpu")
+    uploading, release = threading.Event(), threading.Event()
+    real = ColumnBatch.from_numpy
+
+    def held_upload(*a, **kw):
+        uploading.set()  # past _emit_batches' check_cancel
+        assert release.wait(timeout=60), "upload never released"
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ColumnBatch, "from_numpy", staticmethod(held_upload))
+    token = CancelToken()
+    with bind_token(token):
+        handle = PrefetchHandle(lambda: src.scan(0), depth=2, label="nation")
+    assert uploading.wait(timeout=60), "the scan never reached its upload"
+    assert token.cancel("test")
+    release.set()
+    handle._future.result(timeout=60)
+    with pytest.raises(QueryCancelled):
+        list(handle)
+    stats = residency.process_table_cache().stats()
+    assert stats["entries"] == 0 and stats["resident_bytes"] == 0, stats

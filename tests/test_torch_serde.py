@@ -8,7 +8,7 @@ package's (``ballista_tpu/serde.py``).
   byte for byte; their bytes equal the JAX package's for the same query;
 - a plan the JAX package serialized deserializes in the port and runs
   equal to the port's own;
-- the kinds of later ROADMAP items (mesh, EXPLAIN, system tables) raise
+- the kinds of later ROADMAP items (mesh, EXPLAIN) raise
   ``SerdeError`` naming their item, and ``physical_from_proto`` and
   ``source_from_proto`` take no plan without a device.
 
@@ -198,9 +198,22 @@ def test_later_items_raise_serde_error(kind, item):
 
 
 def test_system_source_raises_serde_error():
-    desc = pb.TableSourceDesc(kind="system", path="queries")
-    with pytest.raises(SerdeError, match="item 11"):
-        serde.source_from_proto(desc, device="cpu")
+    """A system-table source ships its rows and is rebuilt from them on
+    the device asked for (the cluster path's system tables); a source
+    kind that is not remotable still raises SerdeError."""
+    import json
+
+    rows = [{"executor_id": "e1", "num_devices": 1}]
+    desc = pb.TableSourceDesc(kind="system", path="system.executors",
+                              payload=json.dumps(rows).encode())
+    src = serde.source_from_proto(desc, device="cpu")
+    assert src.table == "system.executors" and src.current_rows() == rows
+    [batch] = list(src.scan(0))
+    assert batch.device.type == "cpu"
+    assert batch.to_pydict()["executor_id"].tolist() == ["e1"]
+    with pytest.raises(SerdeError, match="not remotable"):
+        serde.source_from_proto(
+            pb.TableSourceDesc(kind="memory", path="t"), device="cpu")
 
 
 def test_deserializing_needs_a_device(tbl_source):

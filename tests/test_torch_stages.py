@@ -1,6 +1,6 @@
 """Stage planning and staged execution through Arrow IPC shuffle files in
-the port (``distributed/planner.py``, ``physical/shuffle.py``,
-``testing/stages.py``) against the JAX package.
+the port (``distributed/planner.py``, ``physical/shuffle.py``, the
+executor's writes, ``testing/stages.py``) against the JAX package.
 
 At SF0.002 (two files a table), for q1, q3, q5 and q13:
 
@@ -8,13 +8,15 @@ At SF0.002 (two files a table), for q1, q3, q5 and q13:
   node classes) equals the JAX package's ``DistributedPlanner`` output,
   with the default settings and with hash shuffles forced
   (``join.partitioned.threshold=100``, ``agg.partitions=4``);
-- ``run_staged`` with hash shuffles forced, locally and through the
+- the port's ``LocalCluster`` (``device="cpu"``) with hash shuffles
+  forced, reading shuffle files from the local path and through the
   Python data plane, equals the port's standalone collect, the JAX
-  package's result and the pandas oracle; every deserialized stage's
-  leaves are on the context's device; a second staged run builds no new
-  governed program (dictionary identity survives the shuffle reads);
-- the port finishes a query whose first stage the JAX package ran and
-  wrote;
+  package's result and the pandas oracle; every task plan an executor
+  deserialized has its leaves on the executor's device; a second run
+  of the query builds no new governed program (dictionary identity
+  survives the shuffle reads);
+- ``run_staged`` finishes a query whose first stage the JAX package ran
+  and wrote (what a cluster cannot express);
 - a ``ShuffleReaderExec`` with an adaptive layout (coalesced buckets, a
   bucket split by producers) over the JAX package's shuffle files reads
   what the JAX package's reader reads.
@@ -38,12 +40,15 @@ from benchmarks.tpch import oracle
 from benchmarks.tpch.schema_def import register_tpch as register_reference
 
 from ballista_tpu_torch import serde
+from ballista_tpu_torch.client import BallistaContext
 from ballista_tpu_torch.compile import compile_stats
+from ballista_tpu_torch.distributed.executor import Executor, LocalCluster
 from ballista_tpu_torch.distributed.planner import DistributedPlanner
 from ballista_tpu_torch.distributed.types import PartitionLocation
 from ballista_tpu_torch.execution import plan_logical
 from ballista_tpu_torch.physical.shuffle import ShuffleReaderExec
 from ballista_tpu_torch.testing.stages import run_staged, stage_dag
+from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
 from torch_warm_path import (assert_equals_reference, generate_tpch,
                              pinned_threads, port_ctx, sql)
@@ -54,7 +59,9 @@ SHUFFLED = {"join.partitioned.threshold": "100", "agg.partitions": "4"}
 
 @pytest.fixture(scope="module", autouse=True)
 def _pinned_threads():
-    with pinned_threads():
+    """One torch, ingest and scanner thread: a cluster runs up to four
+    tasks at once, and the tier's timing-gated tests share the cores."""
+    with pinned_threads(1):
         yield
 
 
@@ -144,24 +151,69 @@ def _assert_equals_oracle(got, exp: pd.DataFrame):
                                           err_msg=c)
 
 
+@pytest.fixture(scope="module")
+def clusters():
+    """remote -> a LocalCluster on the CPU: ``None`` reads shuffle files
+    from the local path, ``"python"`` runs the Python data-plane server
+    in every executor (every read then goes through it)."""
+    with pytest.MonkeyPatch.context() as mp:
+        local = LocalCluster(num_executors=2, concurrent_tasks=2,
+                             device="cpu")
+        mp.setenv("BALLISTA_NATIVE_DATAPLANE", "off")
+        python = LocalCluster(num_executors=2, concurrent_tasks=2,
+                              device="cpu")
+    try:
+        yield {None: local, "python": python}
+    finally:
+        local.shutdown()
+        python.shutdown()
+
+
+@pytest.fixture()
+def task_plans(monkeypatch):
+    """Every task plan an executor runs, as deserialized and fused."""
+    plans = []
+    real = Executor.execute_partition
+
+    def recording(self, pid, plan, shuffle=None):
+        plans.append(plan)
+        return real(self, pid, plan, shuffle)
+
+    monkeypatch.setattr(Executor, "execute_partition", recording)
+    return plans
+
+
+def _cluster_run(cluster, tpch_dir, q):
+    ctx = BallistaContext.remote("localhost", cluster.port, device="cpu",
+                                 **SHUFFLED)
+    register_tpch(ctx, tpch_dir)
+    return ctx, ctx.sql(sql(q)).to_pydict()
+
+
 @pytest.mark.parametrize("remote", [None, "python"])
 @pytest.mark.parametrize("q", QUERIES)
 def test_staged_equals_standalone_reference_and_oracle(
-        contexts, expected, tmp_path, q, remote):
-    port, _ = contexts["shuffled"]
-    run = run_staged(port, sql(q), str(tmp_path), remote=remote)
+        clusters, tpch_dir, expected, task_plans, monkeypatch, q, remote):
+    cluster = clusters[remote]
+    monkeypatch.setattr(ShuffleReaderExec, "FORCE_REMOTE",
+                        remote is not None)
+    ctx, result = _cluster_run(cluster, tpch_dir, q)
     standalone, reference, exp = expected(q)
-    _assert_close(run.result, standalone, q)
-    assert_equals_reference(run.result, reference)
-    _assert_equals_oracle(run.result, exp)
-    assert len(run.stages) >= 2
-    for rec in run.stages:
-        for node in _leaves(rec.plan):
+    _assert_close(result, standalone, q)
+    assert_equals_reference(result, reference)
+    _assert_equals_oracle(result, exp)
+    assert len(cluster.state.stage_ids(ctx._last_job_id)) >= 2
+    assert task_plans
+    for plan in task_plans:
+        for node in _leaves(plan):
             dev = getattr(node, "device", None) or node.source.device
-            assert dev.type == "cpu", (rec.stage_id, type(node).__name__)
-    fetched = sum(s.remote_fetches for s in run.stages)
+            assert dev.type == "cpu", type(node).__name__
+    fetched = sum(int(op["metrics"].get("remote_fetches", 0))
+                  for op in ctx.last_query_metrics().operators())
     assert (fetched > 0) == (remote is not None)
-    assert run.server == (None if remote is None else "DataPlaneServer")
+    servers = {type(e._data_plane).__name__ for e in cluster.executors}
+    assert servers == ({"NativeDataPlane"} if remote is None
+                       else {"DataPlaneServer"})
 
 
 def _leaves(plan):
@@ -171,13 +223,12 @@ def _leaves(plan):
 
 
 @pytest.mark.parametrize("q", ["q3", "q5"])
-def test_second_staged_run_builds_no_program(contexts, tmp_path, q):
-    port, _ = contexts["shuffled"]
-    first = run_staged(port, sql(q), str(tmp_path / "a"))
+def test_second_staged_run_builds_no_program(clusters, tpch_dir, q):
+    _, first = _cluster_run(clusters[None], tpch_dir, q)
     built = compile_stats()["programs_built"]
-    second = run_staged(port, sql(q), str(tmp_path / "b"))
+    _, second = _cluster_run(clusters[None], tpch_dir, q)
     assert compile_stats()["programs_built"] == built
-    _assert_close(second.result, first.result, q)
+    _assert_close(second, first, q)
 
 
 def _reference_write_stage(ref, stage, work_dir):
