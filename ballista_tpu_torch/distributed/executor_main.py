@@ -6,10 +6,11 @@
 a standalone scheduler in-process like the reference's local mode.)
 
 The port of the JAX package's binary: ``--device`` (``cuda`` by default,
-``cpu`` when asked) is the torch device every task runs on, and
-``--num-devices 0`` counts that kind's devices. Mesh groups
-(``--mesh-group-size`` above 1) are not ported (ROADMAP queue 1 item
-10) and raise.
+``cpu`` when asked) is the one torch device every task runs on, and the
+executor reports that one device to the scheduler. Meshes are not
+ported (ROADMAP queue 1 item 10): ``--mesh-group-size`` above 1 raises,
+and the reference's ``--num-devices`` and other mesh-group options are
+not accepted.
 """
 
 from __future__ import annotations
@@ -30,14 +31,9 @@ DEFAULTS = {
     "port": 0,  # data-plane port (0 = ephemeral)
     "work_dir": "",
     "concurrent_tasks": 4,
-    "num_devices": 0,  # 0 = autodetect
-    # -- mesh group: executors on several hosts forming ONE device mesh --
-    "mesh_group_size": 0,  # processes in the group; 0 = no group
-    "mesh_group_rank": 0,  # this process's rank (0 = leader)
-    "mesh_group_coordinator": "",  # jax.distributed coordinator host:port
-    "mesh_group_channel": "",  # leader's task channel (host:port);
-    #                            leader binds it, followers dial it
-    "mesh_local_devices": 0,  # virtual CPU devices per process (tests)
+    # mesh group: executors on several hosts forming ONE device mesh;
+    # not ported, so above 1 raises (module doc)
+    "mesh_group_size": 0,
     # C++ shuffle-server daemon serves the data plane (GIL-free); "off"
     # keeps the in-process Python server (also the automatic fallback)
     "native_dataplane": "on",
@@ -95,12 +91,6 @@ def main(argv=None) -> int:
         )
         print(f"embedded scheduler on localhost:{scheduler_port}", flush=True)
 
-    num_devices = cfg["num_devices"]
-    if not num_devices:
-        import torch
-
-        num_devices = (torch.cuda.device_count() if device.type == "cuda"
-                       else 1)
     exec_cfg = ExecutorConfig(
         host=cfg["external_host"] or cfg["bind_host"],
         bind_host=cfg["bind_host"],
@@ -109,7 +99,6 @@ def main(argv=None) -> int:
         concurrent_tasks=cfg["concurrent_tasks"],
         scheduler_host="localhost" if args.local else cfg["scheduler_host"],
         scheduler_port=scheduler_port,
-        num_devices=num_devices,
         native_dataplane=_native_enabled(cfg["native_dataplane"]),
         metrics_port=int(cfg["metrics_port"]),
         device=device,

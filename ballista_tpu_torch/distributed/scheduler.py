@@ -5,7 +5,11 @@ scheduler plans, cuts and re-serializes plans but never runs one, so
 everything it deserializes lives on the CPU (``device="cpu"``): it
 creates no CUDA context. The mesh fast path (``physical.mesh_agg``) is
 not ported (ROADMAP queue 1 item 10): a fleet reporting more than one
-device per executor is refused, not planned unfused.
+device per executor is refused, not planned unfused. For the same
+reason a plan that still holds a scalar subquery (a server-planned
+query, ``plan.server``) is refused: the JAX scheduler runs such a
+subquery on its default device, which here would be the scheduler's
+CPU (ROADMAP queue 1 item 9c).
 
 Re-implements the reference scheduler (reference: rust/scheduler/src/
 lib.rs — the 5 SchedulerGrpc RPCs; execute_query background planning at
@@ -32,7 +36,7 @@ from typing import Dict, Optional
 import grpc
 
 from ..errors import ClusterError, NotImplementedError_
-from ..execution import plan_logical
+from ..execution import map_scalar_subqueries, plan_logical
 from ..observability import trace_span
 from ..proto import ballista_pb2 as pb
 from ..testing.faults import fault_point
@@ -88,6 +92,16 @@ def _fuse_mesh_stages(stages, n_mesh: int):
     raise NotImplementedError_(
         f"executors report {n_mesh} devices each: mesh-fused stages are "
         "not ported yet (ROADMAP queue 1 item 10)")
+
+
+def _refuse_subquery(_subquery):
+    """The scheduler runs no query (module doc): a scalar subquery left
+    in a plan is refused, not run on its CPU."""
+    raise NotImplementedError_(
+        "a scalar subquery in a server-planned query would run on the "
+        "scheduler's CPU: plan it client-side (settings['plan.server']="
+        "'off'); running it on an executor is not ported yet (ROADMAP "
+        "queue 1 item 9c)")
 
 
 def _cluster_mesh_devices(state: SchedulerState, settings,
@@ -846,6 +860,7 @@ class SchedulerService:
         self.state.save_job_settings(job_id, settings or {})
         if logical_plan is None:
             logical_plan = self._plan_sql(sql, catalog_entries or [])
+        map_scalar_subqueries(logical_plan, _refuse_subquery)
         digest = None
         try:
             # plan digest: identifies the query in slow-query summaries

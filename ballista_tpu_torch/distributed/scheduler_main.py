@@ -26,13 +26,12 @@ DEFAULTS = {
     "port": 50050,
     "config_backend": "memory",  # memory | sqlite | etcd
     "sqlite_path": "ballista-state.db",
-    "etcd_urls": "localhost:2379",
     "speculation_secs": 60,  # duplicate stragglers after this; 0 = off
     "flight_port": -1,  # Arrow Flight SQL front-end; -1 = off, 0 = ephemeral
     "metrics_port": 0,  # health plane (/healthz, /metrics); -1 = off
     "log_level": "INFO",
-    # durable control plane: --state sqlite:/path or etcd:host:port is
-    # shorthand for config_backend + its path/urls in one flag
+    # durable control plane: --state sqlite:/path is shorthand for
+    # config_backend + its path in one flag (etcd: raises, module doc)
     "state": "",
     # demand-driven autoscaler (off unless on): spawns/drains
     # executor_main subprocesses against this scheduler; bounds and
@@ -65,8 +64,6 @@ def main(argv=None) -> int:
         cfg["config_backend"] = kind
         if kind == "sqlite" and rest:
             cfg["sqlite_path"] = rest
-        elif kind == "etcd" and rest:
-            cfg["etcd_urls"] = rest
     backends = ("memory", "sqlite", "etcd")
     if cfg["config_backend"] not in backends:
         # validate post-layering so env/TOML typos fail loudly instead of

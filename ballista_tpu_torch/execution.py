@@ -66,9 +66,16 @@ def resolve_scalar_subqueries(plan: LogicalPlan, options=None) -> LogicalPlan:
             return ex.Literal(str(v), f.dtype)
         return ex.Literal(int(v), f.dtype)
 
+    return map_scalar_subqueries(plan, subquery_value)
+
+
+def map_scalar_subqueries(plan: LogicalPlan, value) -> LogicalPlan:
+    """Replace, in place, every scalar subquery in ``plan``'s expressions
+    with ``value(subquery)``; returns ``plan``."""
+
     def fix(e: ex.Expr) -> ex.Expr:
         if isinstance(e, ex.ScalarSubquery):
-            return subquery_value(e)
+            return value(e)
         for attr in ("expr", "left", "right", "base", "otherwise"):
             if hasattr(e, attr) and isinstance(getattr(e, attr), ex.Expr):
                 setattr(e, attr, fix(getattr(e, attr)))

@@ -27,12 +27,17 @@ two tasks):
 - the modules copied verbatim equal the JAX package's text with the
   package name replaced (one, whose docstring drops history references,
   its code);
+- a server-planned (``plan.server=on``) q11 fails naming ROADMAP queue
+  1 item 9c: its scalar subquery would run on the scheduler's CPU;
 - the binaries' options that need unported modules (etcd state, the
   Flight endpoint, mesh groups) exit with ``NotImplementedError_``
-  naming their ROADMAP item;
+  naming their ROADMAP item, and those that only configure them
+  (``--num-devices``, the other mesh-group flags, ``--etcd-urls``) are
+  not accepted;
 - ``python -m ballista_tpu_torch.distributed.executor_main --local
-  --device cpu`` answers q1 through ``BallistaContext.remote`` and exits
-  0 through the drain path on SIGTERM.
+  --device cpu``, with torch reporting four cards, reports one device,
+  answers q1 through ``BallistaContext.remote`` and exits 0 through the
+  drain path on SIGTERM.
 
 Card-only (``test_cuda_*``, skipped here, run by
 ``testing/card_checks.py``; the JAX package is imported only inside the
@@ -306,6 +311,20 @@ def test_system_tables_have_the_reference_columns(contexts, runs):
     assert list(execs["num_devices"]) == [1, 1]
 
 
+def test_server_planned_subquery_is_refused(clusters, tpch_dir):
+    """With ``plan.server=on`` the scheduler plans the SQL; q11's scalar
+    subquery would then run on the scheduler's CPU, so the job fails
+    naming its ROADMAP item, and nothing of it runs."""
+    from ballista_tpu_torch.errors import ClusterError
+
+    port, _ref, _ = clusters
+    ctx = BallistaContext.remote("localhost", port.port, device="cpu",
+                                 **{"plan.server": "on"})
+    register_tpch(ctx, tpch_dir)
+    with pytest.raises(ClusterError, match="scalar subquery.*item 9c"):
+        ctx.sql(sql("q11")).to_pydict()
+
+
 # ---------------------------------------------------------------------------
 # the ported modules
 # ---------------------------------------------------------------------------
@@ -437,11 +456,23 @@ def test_copied_module_equals_the_reference(module):
 # ---------------------------------------------------------------------------
 
 
+# ``python -m`` of the executor binary on a host that reports four cards
+_FOUR_CARDS = (
+    "import runpy, sys, torch\n"
+    "torch.cuda.device_count = lambda: 4\n"
+    "sys.argv[0] = 'executor_main'\n"
+    "runpy.run_module('ballista_tpu_torch.distributed.executor_main',"
+    " run_name='__main__', alter_sys=True)\n")
+
+
 def test_executor_binary_answers_q1_and_drains(tpch_dir):
+    """The binary runs as ``python -m`` does, on a host whose torch
+    reports four cards: the executor reports its one device, so the
+    scheduler plans no mesh and q1 runs."""
     env = dict(os.environ, PYTHONPATH=ROOT, BALLISTA_INGEST_THREADS="2",
                BALLISTA_SCAN_THREADS="2", OMP_NUM_THREADS="2")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "ballista_tpu_torch.distributed.executor_main",
+        [sys.executable, "-c", _FOUR_CARDS,
          "--local", "--device", "cpu", "--concurrent-tasks", "2",
          "--metrics-port", "-1"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -469,6 +500,9 @@ def test_executor_binary_answers_q1_and_drains(tpch_dir):
                 np.testing.assert_allclose(got[c], want[c], rtol=1e-6)
             else:
                 assert list(got[c]) == list(want[c]), c
+        execs = ctx.sql("select num_devices from system.executors"
+                        ).to_pydict()
+        assert list(execs["num_devices"]) == [1]
         proc.send_signal(signal.SIGTERM)
         out, _ = proc.communicate(timeout=60)
         lines.append(out)
@@ -481,21 +515,37 @@ def test_executor_binary_answers_q1_and_drains(tpch_dir):
     assert proc.returncode == 0, text
 
 
-@pytest.mark.parametrize("binary,args,item", [
-    ("scheduler_main", ["--state", "etcd:localhost:2379"], "item 9b"),
-    ("scheduler_main", ["--flight-port", "0"], "item 9b"),
+# the reference's options that only configure unported modules: the
+# port's binaries do not accept them (argparse exits 2)
+_MESH_GROUP_FLAGS = ["--num-devices", "4", "--mesh-group-rank", "1",
+                     "--mesh-group-coordinator", "localhost:1",
+                     "--mesh-group-channel", "localhost:2",
+                     "--mesh-local-devices", "2"]
+
+
+@pytest.mark.parametrize("binary,args,expected", [
+    ("scheduler_main", ["--state", "etcd:localhost:2379"],
+     ["NotImplementedError_", "item 9b"]),
+    ("scheduler_main", ["--flight-port", "0"],
+     ["NotImplementedError_", "item 9b"]),
     ("executor_main", ["--local", "--device", "cpu",
-                       "--mesh-group-size", "2"], "item 10"),
-], ids=["etcd_state", "flight_port", "mesh_group"])
-def test_unported_binary_options_raise(binary, args, item):
+                       "--mesh-group-size", "2"],
+     ["NotImplementedError_", "item 10"]),
+    ("scheduler_main", ["--etcd-urls", "localhost:2379"],
+     ["unrecognized arguments: --etcd-urls localhost:2379"]),
+    ("executor_main", ["--local", "--device", "cpu"] + _MESH_GROUP_FLAGS,
+     ["unrecognized arguments: " + " ".join(_MESH_GROUP_FLAGS)]),
+], ids=["etcd_state", "flight_port", "mesh_group", "etcd_urls",
+        "mesh_group_flags"])
+def test_unported_binary_options_raise(binary, args, expected):
     proc = subprocess.run(
         [sys.executable, "-m", f"ballista_tpu_torch.distributed.{binary}",
          "--metrics-port", "-1"] + args,
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
         text=True, timeout=120)
     assert proc.returncode != 0
-    assert "NotImplementedError_" in proc.stderr and item in proc.stderr, \
-        proc.stderr[-2000:]
+    for text in expected:
+        assert text in proc.stderr, proc.stderr[-2000:]
 
 
 # ---------------------------------------------------------------------------
