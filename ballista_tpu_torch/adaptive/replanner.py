@@ -24,8 +24,9 @@ reports echo it, so an executor that raced a re-plan reports into a
 dropped bucket instead of corrupting the new plan's bookkeeping.
 
 All decisions are best-effort: any structural condition not recognized
-(multi-stage readers, mesh-fused stages, already-started tasks) leaves
-the static plan untouched, which is always correct.
+(multi-stage readers, mesh-fused stages, already-started tasks, a stage
+already rewritten) leaves the static plan untouched, which is always
+correct.
 """
 
 from __future__ import annotations
@@ -215,6 +216,15 @@ def _maybe_demote_join(state, job_id: str, consumer_sid: int,
 
     crow = state.get_stage_plan(job_id, consumer_sid)
     if crow.mesh_devices or state.stage_started(job_id, consumer_sid):
+        return
+    if crow.version > 0:
+        # already rewritten: a downstream demotion stripped this stage's
+        # shuffle and laid its probe reads out one task of this stage
+        # each, so this stage's task count must not change any more.
+        # (The JAX package's re-planner lacks this check: when the
+        # downstream build completes first, it shrinks this stage's
+        # tasks under that layout and the downstream tasks past the new
+        # count fail reading.)
         return
     # cheap row-level pre-check before deserializing the plan (this
     # runs under the state lock for EVERY blocked dependent of every

@@ -372,6 +372,24 @@ class DeviceTableCache:
         for e in dropped:
             self._gov.release(e.nbytes, e.device)
 
+    def entry_rows(self) -> List[dict]:
+        """``system.cache`` rows for this tier: one per pinned
+        partition."""
+        now = time.time()
+        with self._lock:
+            return [
+                {
+                    "tier": "table",
+                    "entry": f"{k[0]}:{os.path.basename(str(k[1]))}"
+                             f"[{k[3]}]",
+                    "bytes": e.nbytes,
+                    "hits": e.hits,
+                    "age_seconds": round(now - e.filled_at, 3),
+                    "idle_seconds": round(now - e.last_access, 3),
+                }
+                for k, e in self._entries.items()
+            ]
+
     def stats(self) -> dict:
         with self._lock:
             out = {

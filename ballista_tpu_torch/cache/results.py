@@ -214,6 +214,22 @@ class ResultCache:
         for e in dropped:
             release_host_bytes("cache", e.nbytes)
 
+    def entry_rows(self) -> List[dict]:
+        """``system.cache`` rows for this tier."""
+        now = time.time()
+        with self._lock:
+            return [
+                {
+                    "tier": "result",
+                    "entry": f"plan:{abs(hash(k)) % 10**10:010d}",
+                    "bytes": e.nbytes,
+                    "hits": e.hits,
+                    "age_seconds": round(now - e.filled_at, 3),
+                    "idle_seconds": round(now - e.last_access, 3),
+                }
+                for k, e in self._entries.items()
+            ]
+
     def stats(self) -> dict:
         with self._lock:
             return {

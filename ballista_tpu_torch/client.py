@@ -18,8 +18,14 @@ first pull (``ingest.prime_plan``; scans serve from the device table
 cache when they can), the standalone adaptive pass over the primed tree
 (``adaptive/standalone.py``, once per kept plan, then re-fused), one
 cancel token bound around it (``ctx.cancel()`` from another thread), and
-``cancel_plan`` in a ``finally``. Prewarming, standalone profiling and
-system tables, EXPLAIN and the latency ledger are not ported yet.
+``cancel_plan`` in a ``finally``. Around it, as in the JAX package: a
+``StandaloneQueryRecorder`` (``system.queries``, ``system.latency``, the
+query history and the latency ledger, ``ctx.last_query_ledger()``), the
+``planning`` and ``host_decode`` ledger stamps, a progress sampler when
+the caller passes ``on_progress``, and a profile artifact per collect
+under ``BALLISTA_PROFILE=<dir>``. ``EXPLAIN [VERBOSE]`` and ``EXPLAIN
+ANALYZE`` plan to ``physical/explain.py``. Prewarming is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -80,14 +86,13 @@ class BallistaContext:
         self.port = port
         self.device = _resolve_device(device)
         self.settings = dict(settings or {})
-        if mode == "remote":
-            # per-session metering on the scheduler: every query of this
-            # context is accounted to one session id, which travels with
-            # the submitted settings (a caller's "session.id" wins)
-            import uuid
+        # per-session metering (observability/progress.py): every query
+        # of this context is accounted to one session id, which travels
+        # with the submitted settings (a caller's "session.id" wins)
+        import uuid
 
-            self.session_id = self.settings.setdefault(
-                "session.id", uuid.uuid4().hex[:12])
+        self.session_id = self.settings.setdefault(
+            "session.id", uuid.uuid4().hex[:12])
         self._catalog: Dict[str, CatalogTable] = {}
         # SQL plan cache: repeated identical queries reuse the planned
         # DataFrame (and its physical plan); cleared on catalog change
@@ -100,7 +105,16 @@ class BallistaContext:
         # remote job's id and per-stage metrics
         self._active_job_sinks: List[list] = []
         self._last_job_id = None
+        # the last query's operator metrics: a remote query's come from
+        # the scheduler; a standalone query keeps its executed plan and
+        # snapshots it only when read (last_query_metrics)
         self._last_query_metrics = None
+        self._last_query_phys = None
+        # the last query's latency ledger (standalone: assembled at its
+        # end; remote: fetched when read, merged with the client's
+        # envelope in _last_ledger_env)
+        self._last_query_ledger = None
+        self._last_ledger_env = None
         # warm-path attribution of this context's collects: scan
         # partitions served by the table cache, results served by the
         # result cache
@@ -198,14 +212,15 @@ class BallistaContext:
         return DataFrame(self, TableScan("parquet:" + path, src))
 
     def _system_source(self, name: str):
-        """Scan source for a ``system.*`` table of a remote context: its
-        rows are fetched from the SCHEDULER at scan or ship time, so
-        they reflect cluster state. Standalone system tables are not
-        ported yet (ROADMAP queue 1 item 11)."""
+        """Scan source for a ``system.*`` table: the current process's
+        snapshot in standalone mode; in remote mode rows are fetched
+        from the SCHEDULER at scan or ship time, so they reflect cluster
+        state. Either way its batches are made on the context's
+        device."""
         from .observability.systables import SystemTableSource
 
         if self.mode != "remote":
-            return None
+            return SystemTableSource(name, device=self.device)
         host, port = self.host, self.port
 
         def fetch():
@@ -219,7 +234,7 @@ class BallistaContext:
         if name not in self._catalog:
             from .observability.systables import is_system_table
 
-            if self.mode == "remote" and is_system_table(name):
+            if is_system_table(name):
                 return DataFrame(
                     self, TableScan(name, self._system_source(name)))
             raise PlanError(f"unknown table {name!r}")
@@ -317,10 +332,15 @@ class BallistaContext:
                         raw_sql: Optional[str] = None, on_progress=None):
         """Submit ``plan`` (or ``raw_sql`` with the catalog), wait for
         the job and fetch its final partitions: a pandas DataFrame."""
+        import time as _time
+
         from .distributed.client import remote_collect, remote_sql_collect
+        from .observability import ledger as _ledger
 
         sink: list = []
         jsink: list = []
+        _ledger.begin_collect()
+        t0 = _time.perf_counter()
         # jsink receives the job id at SUBMIT time, so a concurrent
         # ctx.cancel() can cancel the job while this thread waits
         with self._track_lifecycle(jsink, self._active_job_sinks):
@@ -335,18 +355,30 @@ class BallistaContext:
                     metrics_out=sink, job_id_out=jsink,
                     on_progress=on_progress)
         self._last_query_metrics = sink[0] if sink else None
+        self._last_query_phys = None
         self._last_job_id = next(
             (j for j in jsink if isinstance(j, str)), None)
+        # the client envelope of the job's ledger: end-to-end wall and
+        # the client-side stamps (result_transfer, host_decode) the
+        # scheduler never sees; merged when the ledger is read
+        self._last_query_ledger = None
+        self._last_ledger_env = {"wall": _time.perf_counter() - t0,
+                                 "stamps": _ledger.take_collect()}
         return out
 
     def job_progress(self, job_id: Optional[str] = None):
-        """Live progress snapshot of a remote job (per-stage fractions,
-        ETA, task counts; the JAX package's shape), by default of this
-        context's in-flight job or else its last one; None when the
-        scheduler knows nothing of it. Standalone progress is not
-        ported yet (ROADMAP queue 1 item 11)."""
+        """Live progress snapshot of a job (per-stage fractions, ETA,
+        task counts; the JAX package's shape). Remote: by default of
+        this context's in-flight job or else its last one, asked of the
+        scheduler. Standalone: of this process's in-flight collects.
+        None when nothing is known of the job."""
         if self.mode != "remote":
-            return None
+            from .observability import progress as obs_progress
+
+            handles = obs_progress.local_live_handles()
+            if job_id is not None:
+                handles = [h for h in handles if h.job_id == job_id]
+            return handles[-1].snapshot() if handles else None
         jid = job_id
         if not jid:
             with self._lifecycle_lock:
@@ -360,42 +392,213 @@ class BallistaContext:
         return fetch_job_progress(self.host, self.port, jid)
 
     def last_query_metrics(self):
-        """Per-stage operator metrics of this context's last remote
-        query (:class:`observability.QueryMetrics`, the scheduler's
-        aggregation over completed tasks), or None."""
+        """Per-stage operator metrics of this context's last query
+        (:class:`observability.QueryMetrics`), or None before any query
+        or under ``BALLISTA_METRICS=0``. Standalone queries report one
+        synthetic stage 0, snapshotted from the executed plan when read;
+        remote queries the scheduler's aggregation over completed
+        tasks."""
+        if self._last_query_metrics is None and \
+                self._last_query_phys is not None:
+            from .observability.metrics import snapshot_plan_metrics
+
+            self._last_query_metrics = snapshot_plan_metrics(
+                self._last_query_phys)
         return self._last_query_metrics
 
-    def _collect(self, plan: LogicalPlan, phys=None):
-        """Plan (unless the caller passes a cached physical plan) and
-        execute; returns ``(dict of numpy arrays, phys)``. One cancel
-        token per collect: ``cancel()`` fires it from another thread,
-        the slow-query killer on timeout, and every batch boundary under
-        the bind checks it."""
+    def _record_plan_metrics(self, phys) -> None:
+        from .observability.metrics import metrics_enabled
+
+        self._last_query_metrics = None
+        self._last_query_phys = phys if metrics_enabled() else None
+
+    def last_query_ledger(self):
+        """The latency ledger of the most recent query this context ran:
+        the fixed phase schema (``observability.ledger.LEDGER_PHASES``)
+        plus wall seconds and the unattributed remainder, or None before
+        any query or under ``BALLISTA_LEDGER=0``. Standalone queries keep
+        the ledger assembled at their end; remote queries fetch the
+        scheduler's ``system.latency`` rows for the job here, when read,
+        and merge them with the client envelope (end-to-end wall, result
+        transfer, host decode) — nothing on the collect's own path."""
+        if self._last_query_ledger is None and self.mode == "remote" \
+                and self._last_job_id and self._last_ledger_env:
+            self._last_query_ledger = self._fetch_remote_ledger()
+        return self._last_query_ledger
+
+    def _fetch_remote_ledger(self):
+        import time as _time
+
+        from .distributed.client import fetch_system_table
+        from .observability import ledger as _ledger
+
+        env = self._last_ledger_env
+        job_id = self._last_job_id
+        # completion is published before the scheduler's terminal hook
+        # records the job ledger (results never wait on observability)
+        # — briefly retry until the job's rows appear
+        rows = []
+        deadline = _time.time() + 5.0
+        while True:
+            try:
+                rows = [r for r in fetch_system_table(
+                            self.host, self.port, "system.latency")
+                        if r.get("job_id") == job_id]
+            except Exception:  # noqa: BLE001 - ledger is advisory
+                rows = []
+            if rows or _time.time() > deadline:
+                break
+            _time.sleep(0.1)
+        phases = {}
+        status = "completed"
+        for r in rows:
+            phase = r.get("phase")
+            if phase and phase != "unattributed":
+                try:
+                    phases[phase] = float(r.get("seconds") or 0.0)
+                except (TypeError, ValueError):
+                    continue
+            status = r.get("status") or status
+        # the client envelope: end-to-end wall + client-side stamps
+        # (result_transfer, host_decode) the scheduler never sees
+        for k, v in (env.get("stamps") or {}).items():
+            phases[k] = phases.get(k, 0.0) + float(v)
+        return _ledger.build_ledger(job_id, env["wall"], origin="client",
+                                    status=status, phases=phases)
+
+    def _standalone_collect(self, plan: LogicalPlan, phys=None,
+                            on_progress=None, frame: bool = False):
+        """Plan (unless the caller passes a kept physical plan), execute
+        and record; returns ``(result, phys)``: a dict of numpy arrays,
+        or a pandas DataFrame when ``frame`` (made inside the collect's
+        ``host_decode`` stamp). Every collect's terminal summary (status,
+        wall seconds, output rows, flight-recorder lanes, latency ledger,
+        artifact path) lands in the system-tables snapshot and the
+        query-history log (``observability/systables.py``).
+        ``on_progress`` receives snapshots of the one progress shape
+        from a sampler thread over the executing plan's metrics, as the
+        cluster path's status poll delivers them."""
+        from .observability.systables import StandaloneQueryRecorder
+
+        rec = StandaloneQueryRecorder(plan, session_id=self.session_id)
+        sampler = None
+        if on_progress is not None:
+            from .observability.progress import LocalProgressSampler
+
+            sampler = LocalProgressSampler(rec.handle, on_progress)
+        try:
+            out, phys2 = self._standalone_collect_routed(plan, phys, rec,
+                                                         frame)
+        except Exception as e:  # noqa: BLE001 - record, then propagate
+            from .errors import QueryCancelled
+
+            if sampler is not None:
+                sampler.finish("cancelled" if isinstance(e, QueryCancelled)
+                               else "failed")
+            rec.finish("failed", error=e)
+            self._last_query_ledger = rec.ledger
+            self._last_ledger_env = None
+            raise
+        if sampler is not None:
+            # terminal callback BEFORE the recorder tears the handle
+            # down: the final snapshot reports fraction exactly 1.0
+            sampler.finish("completed")
+        rec.finish("completed", result=out, phys=phys2)
+        self._last_query_ledger = rec.ledger
+        self._last_ledger_env = None
+        return out, phys2
+
+    def _standalone_collect_routed(self, plan: LogicalPlan, phys, rec,
+                                   frame: bool):
+        from .observability import profiler as obs_profiler
+
+        out_dir = obs_profiler.profile_dir()
+        if out_dir is not None and not obs_profiler.profiling_active():
+            # BALLISTA_PROFILE=<dir>: one artifact a collect, labelled by
+            # a plan digest so a loop's files tell query shapes apart
+            try:
+                profile_label = "query-" + obs_profiler.plan_digest(plan)
+            except Exception:  # noqa: BLE001 - label is cosmetic
+                profile_label = "query"
+            box = {}
+
+            def run():
+                box["r"] = self._standalone_collect_inner(plan, phys, frame)
+
+            import logging
+
+            plog = logging.getLogger("ballista.profiler")
+            try:
+                _, path = obs_profiler.profile_call(
+                    run, label=profile_label,
+                    plan_getter=lambda: box.get("r", (None, None))[1],
+                    out_dir=out_dir, busy_ok=True,
+                )
+            except Exception:
+                if "r" not in box:
+                    raise  # the QUERY failed: propagate as usual
+                # only the artifact write failed (e.g. an unwritable
+                # BALLISTA_PROFILE path): the caller keeps the result
+                plog.exception("profile artifact write failed; "
+                               "returning the query result anyway")
+                path = None
+            if path is not None:
+                plog.info("profile artifact written: %s", path)
+                rec.artifact_path = path
+            return box["r"]
+        # unprofiled run: the always-on flight recorder still lets a
+        # query that crosses BALLISTA_SLOW_QUERY_SECS dump a retroactive
+        # artifact after the fact (no-op when the knob is unset)
+        from .observability.distributed import watch_slow_query
+
+        def slow_label():
+            return "query-" + obs_profiler.plan_digest(plan)
+
+        slow_sink: list = []
+        try:
+            with watch_slow_query(slow_label, artifact_out=slow_sink):
+                return self._standalone_collect_inner(plan, phys, frame)
+        finally:
+            if slow_sink:
+                rec.artifact_path = slow_sink[0]
+
+    def _standalone_collect_inner(self, plan: LogicalPlan, phys=None,
+                                  frame: bool = False):
+        """One cancel token per collect: ``cancel()`` fires it from
+        another thread, the slow-query killer on timeout, and every
+        batch boundary under the bind checks it."""
         from .lifecycle import CancelToken, bind_token, slow_query_killer
 
         token = CancelToken()
         with self._track_lifecycle(token, self._active_tokens), \
                 bind_token(token), \
                 slow_query_killer(token):
-            return self._collect_governed(plan, phys)
+            return self._collect_governed(plan, phys, frame)
 
-    def _collect_governed(self, plan: LogicalPlan, phys=None):
+    def _collect_governed(self, plan: LogicalPlan, phys=None,
+                          frame: bool = False):
         from .cache import results as _results
         from .execution import collect_physical, plan_logical
         from .ingest import cancel_plan, prime_plan
+        from .observability import progress as obs_progress
+        from .observability.ledger import ledger_phase
+        from .physical.explain import ExplainAnalyzeExec, ExplainExec
         from .physical.fusion import maybe_fuse
 
-        if phys is None:
-            phys = plan_logical(plan, self._planner_options())
-        # whole-stage fusion: each pipeline stage becomes one governed
-        # program (a no-op on a kept plan, which is fused already)
-        phys = maybe_fuse(phys)
+        with ledger_phase("planning"):
+            if phys is None:
+                phys = plan_logical(plan, self._planner_options())
+            # whole-stage fusion: each pipeline stage becomes one
+            # governed program (a no-op on a kept plan, fused already)
+            phys = maybe_fuse(phys)
         # plan-fingerprint result cache (cache/results.py, opt-in): a
         # repeat of the same fused plan over unchanged files with the
         # same settings on the same device returns the stored result
-        # without executing
+        # without executing. EXPLAIN executes nothing worth caching and
+        # ANALYZE must measure again, so both bypass it
         rc_key = None
-        if _results.result_cache_enabled(self.settings):
+        if (_results.result_cache_enabled(self.settings)
+                and not isinstance(phys, (ExplainAnalyzeExec, ExplainExec))):
             # keyed on the plan as planned: an adapted plan is a function
             # of the planned one and the (signed) files it read
             rc_key = _results.plan_key(getattr(phys, "_planned", phys),
@@ -403,7 +606,7 @@ class BallistaContext:
             cached = _results.process_result_cache().lookup(rc_key)
             if cached is not None:
                 self._annotate_cache_hits(result_hit=True)
-                return cached, phys
+                return _decode(cached, frame), phys
         for node in _plan_nodes(phys):  # report THIS run's metrics
             node.metrics().reset()
         # parallel ingest: start parse+H2D of every leaf scan now, so
@@ -416,17 +619,24 @@ class BallistaContext:
         prime_plan(phys)
         try:
             phys = self._apply_adaptive(phys)
+            # live progress: expose the final (adapted) tree to this
+            # thread's query handle — the on_progress sampler and
+            # system.tasks/system.stages read it weakly (a no-op for an
+            # unrecorded collect: df.profile())
+            obs_progress.attach_current_plan(phys)
             data = collect_physical(phys)
+            out = _decode(data, frame)
         finally:
             cancel_plan(phys)
             # join builds and repartitioned batches of the tree that ran;
             # scan batches the table cache pins stay with the cache
             for node in _plan_nodes(phys):
                 node.release()
+        self._record_plan_metrics(phys)
         if rc_key is not None:
             _results.process_result_cache().fill(rc_key, data)
         self._annotate_cache_hits(phys)
-        return data, phys
+        return out, phys
 
     def _apply_adaptive(self, phys):
         """Standalone adaptive execution: rewrite the planned tree from
@@ -434,16 +644,20 @@ class BallistaContext:
         Runs once per plan — a kept DataFrame keeps the adapted tree,
         whose layouts stay frozen — then re-fuses what the rewrite
         restructured (a demoted join's probe chain is left unfused, so
-        the join keeps the programs it has)."""
+        the join keeps the programs it has). EXPLAIN [ANALYZE] leaves
+        are left alone: ANALYZE applies the rules itself, inside its
+        measured window."""
         if getattr(phys, "_adaptive_applied", False):
             return phys
         from .adaptive import AdaptiveConfig
         from .adaptive.standalone import apply_adaptive_rules
+        from .physical.explain import ExplainAnalyzeExec, ExplainExec
         from .physical.fusion import fuse_plan, fusion_enabled
 
         planned = phys
         conf = AdaptiveConfig.from_settings(self.settings)
-        if conf.enabled:
+        if conf.enabled and \
+                not isinstance(phys, (ExplainAnalyzeExec, ExplainExec)):
             phys = apply_adaptive_rules(phys, conf)
             if fusion_enabled():
                 phys = fuse_plan(phys, fuse_joins=False)
@@ -501,6 +715,19 @@ def _frame_to_pydict(frame, schema: Schema) -> Dict[str, np.ndarray]:
     return out
 
 
+def _decode(data: Dict[str, np.ndarray], frame: bool):
+    """The collect's result: the dict of numpy arrays, or a pandas
+    DataFrame of it, made under the ledger's ``host_decode`` stamp."""
+    if not frame:
+        return data
+    import pandas as pd
+
+    from .observability.ledger import ledger_phase
+
+    with ledger_phase("host_decode"):
+        return pd.DataFrame(data)
+
+
 def _plan_nodes(plan) -> list:
     out = [plan]
     for c in plan.children():
@@ -545,6 +772,17 @@ class DataFrame:
             "== Logical plan ==\n" + self.plan.pretty()
             + "== Optimized ==\n" + optimize(self.plan).pretty()
         )
+
+    def explain_analyze(self) -> str:
+        """Execute the frame's plan and return the physical plan text
+        annotated with live operator metrics — the DataFrame face of SQL
+        ``EXPLAIN ANALYZE`` (standalone and remote; the remote plan
+        ships as one task, see physical/explain.py)."""
+        from .logical import Explain
+
+        out = self._with(Explain(self.plan, analyze=True)).to_pydict()
+        rows = dict(zip(out["plan_type"], out["plan"]))
+        return rows.get("plan_with_metrics", "")
 
     def logical_plan(self) -> LogicalPlan:
         return self.plan
@@ -600,12 +838,16 @@ class DataFrame:
     def to_pydict(self, on_progress=None) -> Dict[str, np.ndarray]:
         """Execute and return the result as a dict of numpy arrays
         (column name -> logical values). Standalone, needs no pandas; a
-        remote result arrives as pandas first. ``on_progress`` (remote)
-        receives live progress snapshots off the status poll."""
+        remote result arrives as pandas first. ``on_progress`` receives
+        live progress snapshots (the one shape of both paths; the last
+        reports fraction 1.0): off the status poll for a remote frame,
+        from a sampler thread over the executing plan standalone.
+        Callbacks are best-effort: a raising one is logged."""
         if self.ctx.mode == "remote":
             return _frame_to_pydict(self.collect(on_progress=on_progress),
                                     self.schema())
-        out, self._phys = self.ctx._collect(self.plan, phys=self._phys)
+        out, self._phys = self.ctx._standalone_collect(
+            self.plan, phys=self._phys, on_progress=on_progress)
         return out
 
     def cancel(self, reason: str = "client") -> int:
@@ -615,33 +857,59 @@ class DataFrame:
 
     def collect(self, on_progress=None):
         """Execute and return a pandas DataFrame. Remote frames submit
-        their SQL text (``plan.server``) or their logical plan."""
+        their SQL text (``plan.server``) or their logical plan;
+        ``on_progress`` as in :meth:`to_pydict`."""
         if self.ctx.mode == "remote":
             return self.ctx._remote_collect(
                 None if self._raw_sql is not None else self.plan,
                 raw_sql=self._raw_sql, on_progress=on_progress)
-        import pandas as pd
-
-        return pd.DataFrame(self.to_pydict())
+        out, self._phys = self.ctx._standalone_collect(
+            self.plan, phys=self._phys, on_progress=on_progress,
+            frame=True)
+        return out
 
     def profile(self, path: Optional[str] = None,
                 label: Optional[str] = None) -> str:
-        """Run a remote frame and write the scheduler-merged profile
-        artifact of its job (Chrome trace: the scheduler's spans and
-        every executor's task windows) locally; returns its path.
-        Standalone profiling is not ported yet (ROADMAP queue 1 item
-        11)."""
+        """Execute the frame under the query profiler and write ONE
+        Chrome-trace/Perfetto artifact (trace spans, ingest phases,
+        compile attribution, per-operator metrics, named wall-time
+        lanes); returns its path.
+
+        On the cluster path the query runs normally and the scheduler
+        builds the merged artifact — its own spans and every executor's
+        task windows — which this call fetches and writes locally."""
+        from .observability import profiler as obs_profiler
+
+        if self.ctx.mode != "remote":
+            box = {}
+
+            def run():
+                out, phys = self.ctx._standalone_collect_inner(
+                    self.plan, phys=self._phys)
+                self._phys = phys
+                box["phys"] = phys
+                return out
+
+            _, artifact = obs_profiler.profile_call(
+                run, label=label or "query",
+                plan_getter=lambda: box.get("phys"),
+                out_path=path,
+                out_dir=obs_profiler.profile_dir(),
+            )
+            return artifact
+        return self._profile_remote(path, label)
+
+    def _profile_remote(self, path: Optional[str],
+                        label: Optional[str]) -> str:
+        """Cluster df.profile(): run the query, then pull the
+        scheduler-merged artifact for its job."""
         import time as _time
 
         from .distributed.client import SchedulerClient, fetch_job_profile
-        from .errors import ClusterError, NotImplementedError_
+        from .errors import ClusterError
         from .observability import profiler as obs_profiler
         from .observability.export import write_artifact_file
 
-        if self.ctx.mode != "remote":
-            raise NotImplementedError_(
-                "standalone df.profile() is not ported yet (ROADMAP "
-                "queue 1 item 11)")
         self.collect()
         job_id = self.ctx._last_job_id
         if not job_id:
@@ -678,7 +946,7 @@ class DataFrame:
         agg = Aggregate([], [ex.count().alias("__n")], self.plan)
         if self.ctx.mode == "remote":
             return int(self.ctx._remote_collect(agg)["__n"][0])
-        out, _ = self.ctx._collect(agg)
+        out, _ = self.ctx._standalone_collect(agg)
         return int(out["__n"][0])
 
     def show(self, n: int = 20) -> None:

@@ -470,15 +470,25 @@ class ColumnBatch:
 
     def to_pydict(self) -> Dict[str, np.ndarray]:
         """Compact to host: logical values of live rows only."""
-        mask = self.selection.cpu().numpy()
-        out: Dict[str, np.ndarray] = {}
+        from .observability.tracing import trace_span
+
         for f, col in zip(self.schema.fields, self.columns):
             if f.dtype.kind == "utf8" and col.dictionary is None:
                 raise ExecutionError("utf8 column without dictionary")
-            v = col.values.cpu().numpy()
-            invalid = None
-            if col.validity is not None:
-                invalid = ~col.validity.cpu().numpy()[mask]
+        # the host's wait on the card: the JAX package's "batch.to_pydict"
+        # span, which here also holds its per-column "column.to_numpy"
+        # reads (the port has no Column.to_numpy)
+        with trace_span("device.block", site="batch.to_pydict",
+                        columns=len(self.columns)):
+            mask = self.selection.cpu().numpy()
+            values = [col.values.cpu().numpy() for col in self.columns]
+            valids = [None if col.validity is None
+                      else col.validity.cpu().numpy()
+                      for col in self.columns]
+        out: Dict[str, np.ndarray] = {}
+        for f, col, v, valid in zip(self.schema.fields, self.columns,
+                                    values, valids):
+            invalid = None if valid is None else ~valid[mask]
             if f.dtype.kind == "list":
                 out[f.name] = decode_list_rows(
                     v[mask], f.dtype.element.kind, f.dtype.element.scale,

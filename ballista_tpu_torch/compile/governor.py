@@ -56,7 +56,11 @@ Observability keeps the reference's counters (``entries_built``,
 seconds as ``compile_count``/``elapsed_compile`` on the caller's
 ``MetricsSet``. The JAX ``backend_compiles``/``compile_seconds`` become
 ``graph_captures``/``capture_seconds`` (timed around the capture
-directly), beside ``graph_replays``.
+directly), beside ``graph_replays``. What the query's observability
+counts as compile (``observability/export.py``) is every signature's
+first call, summed as ``first_call_seconds`` and emitted per call as
+the ``call_seconds`` of a ``compile.capture`` record: the warm-up and
+the capture on a card, the eager call on the CPU.
 """
 
 from __future__ import annotations
@@ -128,6 +132,7 @@ _STATS: Dict[str, Any] = {
     "programs_built": 0,     # first calls of a (entry, signature) pair
     "graph_captures": 0,     # CUDA graphs captured
     "capture_seconds": 0.0,  # time inside those captures
+    "first_call_seconds": 0.0,  # first calls: warm-up + capture, or eager
     "graph_replays": 0,      # CUDA graph replays
     "program_evictions": 0,  # per-entry programs dropped by the LRU bound
 }
@@ -554,6 +559,7 @@ class GovernedFunction:
                 self.programs.popitem(last=False)
                 _STATS["program_evictions"] += 1
         _STATS["programs_built"] += 1
+        _STATS["first_call_seconds"] += secs
         if metrics is not None:
             # the whole first call: warm-up, and capture on a card
             metrics.add_counter("compile_count", 1)

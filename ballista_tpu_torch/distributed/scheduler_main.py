@@ -5,9 +5,13 @@
 --config-file < env BALLISTA_SCHEDULER_* < CLI flags.)
 
 The port of the JAX package's binary. The scheduler runs no task, so it
-needs no device. Memory and sqlite state work; ``--state etcd:...`` and
-``--flight-port`` raise: ``etcd.py``, ``proto/etcd_pb2.py`` and
-``flight.py`` are not ported (ROADMAP queue 1 item 9b).
+needs no device and creates no CUDA context. State lives in memory, in
+sqlite or in etcd (``--state etcd:host:port`` or ``--etcd-urls``).
+``--flight-port`` serves Arrow Flight (``flight.py``): a ``DoGet``
+whose ticket is raw SQL runs through a loopback remote context on the
+CPU, whose queries run on the executors' devices; a query holding a
+scalar subquery, which that context would run on the scheduler's CPU,
+is refused (ROADMAP queue 1 item 9c).
 """
 
 from __future__ import annotations
@@ -26,12 +30,13 @@ DEFAULTS = {
     "port": 50050,
     "config_backend": "memory",  # memory | sqlite | etcd
     "sqlite_path": "ballista-state.db",
+    "etcd_urls": "localhost:2379",
     "speculation_secs": 60,  # duplicate stragglers after this; 0 = off
     "flight_port": -1,  # Arrow Flight SQL front-end; -1 = off, 0 = ephemeral
     "metrics_port": 0,  # health plane (/healthz, /metrics); -1 = off
     "log_level": "INFO",
-    # durable control plane: --state sqlite:/path is shorthand for
-    # config_backend + its path in one flag (etcd: raises, module doc)
+    # durable control plane: --state sqlite:/path or etcd:host:port is
+    # shorthand for config_backend + its path/urls in one flag
     "state": "",
     # demand-driven autoscaler (off unless on): spawns/drains
     # executor_main subprocesses against this scheduler; bounds and
@@ -40,14 +45,34 @@ DEFAULTS = {
 }
 
 
+_STOP_SIGNALS: list = []
+
+
+def _on_stop_signal(signum, _frame) -> None:
+    _STOP_SIGNALS.append(signum)
+
+
+def _wait_for_stop() -> int:
+    """The first SIGINT or SIGTERM since ``main`` started.
+
+    Handlers, not the JAX binary's blocked mask and ``sigwait``: the
+    threads numpy's BLAS starts while the package imports, before
+    ``main`` can mask anything, do not block the signals, so a SIGTERM
+    the kernel hands one of them takes its default action and kills the
+    process before the drain (exit -15). A handler runs whichever
+    thread the signal lands on, and the main thread sees it here."""
+    import time as _time
+
+    while not _STOP_SIGNALS:
+        _time.sleep(0.1)
+    return _STOP_SIGNALS[0]
+
+
 def main(argv=None) -> int:
-    # sigwait below only receives a signal that is BLOCKED; without
-    # this mask SIGTERM takes the default disposition (immediate kill)
-    # and the graceful-drain path never runs. Masked first thing so
-    # every thread the server spawns inherits the block and the signal
-    # can only be consumed by the main thread's sigwait.
-    signal.pthread_sigmask(signal.SIG_BLOCK,
-                           {signal.SIGINT, signal.SIGTERM})
+    # installed first thing: a stop signal from now on is recorded for
+    # _wait_for_stop, whatever thread receives it
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        signal.signal(sig, _on_stop_signal)
     ap = argparse.ArgumentParser(description="ballista-tpu scheduler")
     ap.add_argument("--config-file", default=None)
     for key in DEFAULTS:
@@ -64,18 +89,14 @@ def main(argv=None) -> int:
         cfg["config_backend"] = kind
         if kind == "sqlite" and rest:
             cfg["sqlite_path"] = rest
+        elif kind == "etcd" and rest:
+            cfg["etcd_urls"] = rest
     backends = ("memory", "sqlite", "etcd")
     if cfg["config_backend"] not in backends:
         # validate post-layering so env/TOML typos fail loudly instead of
         # silently falling back to the in-memory backend
         ap.error(f"config_backend must be one of {backends}, "
                  f"got {cfg['config_backend']!r}")
-
-    if int(cfg["flight_port"]) >= 0:
-        # checked before anything starts: the Arrow Flight front-end
-        raise NotImplementedError_(
-            "--flight-port: the Arrow Flight endpoint is not ported yet "
-            "(ROADMAP queue 1 item 9b)")
 
     logging.basicConfig(
         level=cfg["log_level"].upper(),
@@ -87,9 +108,9 @@ def main(argv=None) -> int:
     if cfg["config_backend"] == "sqlite":
         backend = SqliteBackend(cfg["sqlite_path"])
     elif cfg["config_backend"] == "etcd":
-        raise NotImplementedError_(
-            "etcd state is not ported yet (ROADMAP queue 1 item 9b); "
-            "use --state memory or --state sqlite:<path>")
+        from .etcd import EtcdBackend
+
+        backend = EtcdBackend(cfg["etcd_urls"])
     else:
         backend = MemoryBackend()
     state = SchedulerState(backend, cfg["namespace"])
@@ -130,10 +151,13 @@ def main(argv=None) -> int:
         print(f"autoscaler on: executors {as_cfg.min_executors}.."
               f"{as_cfg.max_executors} (backlog>={as_cfg.backlog_tasks}"
               f", cooldown={as_cfg.cooldown_secs}s)", flush=True)
+    flight_server = None
+    if int(cfg["flight_port"]) >= 0:
+        flight_server = _serve_flight(cfg, port, ap)
     if _svc.health is not None:
         print(f"ballista-tpu scheduler health plane on "
               f"127.0.0.1:{_svc.health.port}", flush=True)
-    stop = signal.sigwait([signal.SIGINT, signal.SIGTERM])
+    stop = _wait_for_stop()
     if stop == signal.SIGTERM:
         # graceful degradation (admission ladder's last rung): shed NEW
         # submissions while admitted work finishes, bounded by the same
@@ -158,9 +182,55 @@ def main(argv=None) -> int:
         print(f"signal {stop}; shutting down", flush=True)
     if launcher is not None:
         launcher.stop_all()
+    if flight_server is not None:
+        flight_server.shutdown()
     _svc.close_health()
     server.stop(grace=2)
     return 0
+
+
+def _refuse_subquery(_subquery):
+    raise NotImplementedError_(
+        "a scalar subquery sent over Arrow Flight would run on the "
+        "scheduler's CPU: running it on an executor is not ported yet "
+        "(ROADMAP queue 1 item 9c)")
+
+
+def _serve_flight(cfg, port: int, ap):
+    """Arrow Flight front-end: foreign clients (the reference's JDBC
+    driver shape — jdbc:arrow://host:flight_port) send raw SQL as a
+    DoGet ticket; the query runs through the NORMAL cluster path
+    (submit -> schedule -> executors -> fetch) via a loopback client
+    context on the CPU, so this process never touches a card."""
+    from ..client import BallistaContext
+    from ..execution import map_scalar_subqueries
+    from .flight import available as flight_available, serve_flight
+
+    if not flight_available():
+        ap.error("--flight-port requires pyarrow.flight")
+    # loopback target: a wildcard/loopback bind is reachable via
+    # 127.0.0.1; a specific interface is only reachable at that addr
+    loop_host = ("127.0.0.1"
+                 if cfg["bind_host"] in ("0.0.0.0", "::", "localhost",
+                                         "127.0.0.1")
+                 else cfg["bind_host"])
+    fctx = BallistaContext.remote(loop_host, port, device="cpu")
+
+    def execute_sql(sql):
+        df = fctx.sql(sql)
+        if df._plan is None and df._raw_sql is None:  # DDL: CREATE
+            import numpy as np  # EXTERNAL TABLE registered above
+
+            return {"status": np.asarray(["OK"], dtype=object)}
+        # the walk raises at the first subquery, before it replaces one
+        map_scalar_subqueries(df.plan, _refuse_subquery)
+        return df.collect()
+
+    flight_server, fport = serve_flight(
+        cfg["bind_host"], int(cfg["flight_port"]), execute_sql=execute_sql)
+    print(f"ballista-tpu Arrow Flight SQL endpoint on "
+          f"{cfg['bind_host']}:{fport}", flush=True)
+    return flight_server
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 The port of the JAX package's ``execution.py``: plan a logical plan,
 fuse it (``physical/fusion.py``), execute every partition (concurrently
 on the ingest pool, ``ingest.iter_partitions``) and gather the live rows
-on the host. The JAX package's EXPLAIN rendering is not ported yet.
+on the host; ``plan_logical`` renders EXPLAIN and builds EXPLAIN
+ANALYZE as the JAX package's does (``physical/explain.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 
 from .columnar import concat_pydicts
 from .datatypes import Float64 as _F64
-from .errors import ExecutionError, NotImplementedError_
+from .errors import ExecutionError
 from . import expr as ex
 from .logical import (
     Aggregate,
@@ -109,8 +110,27 @@ def map_scalar_subqueries(plan: LogicalPlan, value) -> LogicalPlan:
 def plan_logical(plan: LogicalPlan, options=None) -> PhysicalPlan:
     """Resolve scalar subqueries, optimize, and plan physically."""
     if isinstance(plan, Explain):
-        raise NotImplementedError_(
-            "EXPLAIN is not ported yet: ROADMAP queue 1 item 11")
+        # render before AND after optimization so EXPLAIN VERBOSE can show
+        # what the optimizer did; the rows execute as a normal leaf node
+        # (distributed: the text rides the standard shuffle/fetch path)
+        from .physical.explain import make_explain_analyze, render_explain
+
+        device = getattr(options, "device", "cpu")
+        inner = resolve_scalar_subqueries(plan.input, options)
+        unopt = inner.pretty()
+        opt = optimize(inner)
+        phys = create_physical_plan(opt, options)
+        if plan.analyze:
+            # EXPLAIN ANALYZE: execute the plan and annotate it with live
+            # metrics; the node is a leaf, so distributed runs ship the
+            # whole analyzed plan as one task
+            return make_explain_analyze(
+                phys, plan.verbose, opt.pretty(),
+                getattr(options, "adaptive_settings", None), device)
+        return render_explain(opt, phys, plan.verbose, device,
+                              unoptimized_text=unopt,
+                              cost_notes=getattr(options, "cost_notes",
+                                                 None))
     plan = resolve_scalar_subqueries(plan, options)
     return create_physical_plan(optimize(plan), options)
 

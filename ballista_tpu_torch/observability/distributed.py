@@ -45,6 +45,7 @@ from typing import Callable, Dict, List, Optional
 
 from . import memory as obs_memory
 from . import tracing
+from .export import COMPILE_SECONDS, COMPILE_STATS
 
 log = logging.getLogger("ballista.profiler")
 
@@ -73,8 +74,7 @@ def _phase_delta(now: Dict[str, float], before: Dict[str, float]) -> dict:
 
 def _compile_delta(now: dict, before: dict) -> dict:
     out = {}
-    for k in ("backend_compiles", "compile_seconds", "trace_seconds",
-              "persistent_cache_hits"):
+    for k in COMPILE_STATS:
         if k in now:
             v = now[k] - before.get(k, 0)
             out[k] = round(v, 6) if isinstance(v, float) else v
@@ -167,8 +167,7 @@ def capture_task_profile(task_key: str, t0: float, wall: float,
         out["phases"].update(_ledger.task_ledger_phases(
             matched, wall,
             compile_seconds=float(
-                out["compile"].get("compile_seconds", 0.0)
-                + out["compile"].get("trace_seconds", 0.0))))
+                out["compile"].get(COMPILE_SECONDS, 0.0))))
     except Exception:  # noqa: BLE001 - observability only
         log.exception("task ledger extraction failed")
     if truncated:

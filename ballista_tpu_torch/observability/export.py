@@ -15,9 +15,14 @@ are THREAD seconds summed from their spans — under the ingest pipeline
 they overlap, so their sum may legitimately exceed wall time —
 
 - ``parse`` / ``h2d``: ingest phase totals (file parse, host->device);
-- ``compile_trace_lower``: governed first-call time (jaxpr trace +
-  lowering + backend compile or persistent-cache retrieval) from
-  ``compile.jit`` records;
+- ``compile_trace_lower``: governed first-call time, the
+  ``call_seconds`` of ``compile.capture`` records (the port's governor,
+  ``compile/governor.py``): on a card the warm-up call plus the CUDA
+  graph capture that follows it, on the CPU the governed first call
+  (eager), as the JAX package counts the ``call_seconds`` of a
+  ``compile.jit`` record; without records, the governor's
+  ``first_call_seconds`` delta. The ledger's ``compile`` phase is the
+  same delta (``systables.py``, ``distributed.py``);
 - ``device_blocked``: host time blocked on device results
   (``device.block`` spans: batched count syncs, result fetches, join
   builds);
@@ -70,12 +75,20 @@ LANE_NAMES = ("parse", "h2d", "compile_trace_lower", "device_blocked",
 LANE_SPANS = {
     "ingest.parse": "parse",
     "ingest.h2d": "h2d",
-    "compile.jit": "compile_trace_lower",
-    "compile.aot": "compile_trace_lower",
+    "compile.capture": "compile_trace_lower",
     "device.block": "device_blocked",
     "host.dictionary": "host_dictionary",
     "shuffle.spill": "shuffle_spill",
 }
+
+# The governor's compile record and the compile_stats() keys the
+# profile artifacts, task profiles and ledgers carry as their "compile"
+# delta (compile/governor.py::_STATS). COMPILE_SECONDS is the one that
+# counts as compile time.
+COMPILE_SPAN = "compile.capture"
+COMPILE_SECONDS = "first_call_seconds"
+COMPILE_STATS = ("programs_built", "graph_captures", "capture_seconds",
+                 COMPILE_SECONDS)
 
 
 def compute_lanes(session: dict) -> dict:
@@ -104,19 +117,12 @@ def compute_lanes(session: dict) -> dict:
         "shuffle_spill": round(span_sum("shuffle.spill"), 6),
     }
     compile_lane = sum(float(r.get("call_seconds", 0.0)) for r in records
-                       if r.get("name") == "compile.jit")
-    # AOT-loaded programs (compile/aot.py) never trace or lower; only
-    # their measured backend compile/disk-retrieval seconds belong in
-    # this lane — first-call execution is execution
-    compile_lane += sum(float(r.get("compile_seconds", 0.0))
-                        for r in records
-                        if r.get("name") == "compile.aot")
+                       if r.get("name") == COMPILE_SPAN)
     if compile_lane == 0.0:
-        # no compile.jit records (tracing came up late): fall back to
-        # the governor's process-stat delta
+        # no compile.capture records (tracing came up late): fall back
+        # to the governor's process-stat delta
         comp = session.get("compile") or {}
-        compile_lane = (float(comp.get("compile_seconds", 0.0))
-                        + float(comp.get("trace_seconds", 0.0)))
+        compile_lane = float(comp.get(COMPILE_SECONDS, 0.0))
     lanes["compile_trace_lower"] = round(compile_lane, 6)
     measured = sum(lanes.values())
     lanes["xla_execute_other"] = round(max(0.0, wall - measured), 6)

@@ -48,6 +48,7 @@ from typing import Optional
 
 from . import memory as obs_memory
 from . import tracing
+from .export import COMPILE_STATS
 
 # One profiling window per process: start/stop mutate os.environ and the
 # shared tracer, so two overlapping windows would cross-write each
@@ -204,8 +205,7 @@ class Profiler:
             k: (round(compile1[k] - self._compile0.get(k, 0), 6)
                 if isinstance(compile1[k], float)
                 else compile1[k] - self._compile0.get(k, 0))
-            for k in ("backend_compiles", "compile_seconds",
-                      "trace_seconds", "persistent_cache_hits")
+            for k in COMPILE_STATS
             if k in compile1
         }
         operators = None

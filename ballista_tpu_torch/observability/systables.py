@@ -738,6 +738,16 @@ def stage_metrics_provider(stage_metrics: dict) -> Callable[[], List[dict]]:
 # ---------------------------------------------------------------------------
 
 
+def _result_rows(result) -> Optional[int]:
+    """Rows of a collect's result: a pandas DataFrame, or the port's
+    dict of numpy arrays (``to_pydict``)."""
+    if result is None:
+        return None
+    if isinstance(result, dict):
+        return len(next(iter(result.values()))) if result else 0
+    return len(result)
+
+
 class StandaloneQueryRecorder:
     """Times one standalone collect and records its terminal summary —
     with real profiler lanes, computed from the always-on flight
@@ -778,7 +788,7 @@ class StandaloneQueryRecorder:
     def _lanes(self, wall: float, records) -> Optional[dict]:
         from ..compile import compile_stats
         from ..ingest import phase_totals
-        from .export import compute_lanes
+        from .export import COMPILE_STATS, compute_lanes
 
         if records is None:
             return None
@@ -789,7 +799,7 @@ class StandaloneQueryRecorder:
             "phases": {k: phases1.get(k, 0.0) - self._phases0.get(k, 0.0)
                        for k in ("parse", "h2d")},
             "compile": {k: compile1.get(k, 0) - self._compile0.get(k, 0)
-                        for k in ("compile_seconds", "trace_seconds")},
+                        for k in COMPILE_STATS},
             "records": records,
         }
         return compute_lanes(session)["lanes"]
@@ -802,6 +812,7 @@ class StandaloneQueryRecorder:
         to the wall time."""
         from . import ledger as obs_ledger
         from ..compile import compile_stats
+        from .export import COMPILE_SECONDS
 
         # always detach the window, even when recording is off — a
         # stale window would soak up stamps from later unrecorded runs
@@ -814,9 +825,8 @@ class StandaloneQueryRecorder:
                     records).items():
                 phases[phase] = phases.get(phase, 0.0) + secs
         compile1 = compile_stats()
-        comp = sum(
-            float(compile1.get(k, 0.0)) - float(self._compile0.get(k, 0.0))
-            for k in ("compile_seconds", "trace_seconds"))
+        comp = (float(compile1.get(COMPILE_SECONDS, 0.0))
+                - float(self._compile0.get(COMPILE_SECONDS, 0.0)))
         if comp > 0:
             phases["compile"] = phases.get("compile", 0.0) + comp
         measured = sum(phases.values())
@@ -877,7 +887,7 @@ class StandaloneQueryRecorder:
         rec = build_query_record(
             self.job_id, status, wall,
             plan_digest=self.digest,
-            output_rows=(len(result) if result is not None else None),
+            output_rows=_result_rows(result),
             num_stages=1,
             started_at=self._t0,
             peak_host_bytes=obs_memory.peak_host_bytes(),

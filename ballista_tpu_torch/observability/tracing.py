@@ -5,8 +5,9 @@ Coverage (each site tags its span name with the subsystem): scheduler
 events (``scheduler.plan_job``, ``scheduler.task_dispatch``), executor
 task execution (``executor.task``), shuffle fetch (``shuffle.fetch``),
 dataplane I/O (``dataplane.write``), ingest phases (``ingest.*``),
-compile activity (``compile.jit``), host dictionary work
-(``host.dictionary``) and blocking device syncs (``device.block``).
+compile activity (``compile.capture``: a governed program's first
+call), host dictionary work (``host.dictionary``) and blocking device
+syncs (``device.block``).
 A span line is::
 
     {"name": ..., "ts": <epoch start>, "dur": <seconds>, "pid": ...,

@@ -52,6 +52,7 @@ from ..kernels.aggregate import (
     scalar_aggregate,
 )
 from ..kernels.expr_eval import Evaluator
+from ..observability import trace_span
 from ..cache.donation import mark_transient
 from .base import (PhysicalPlan, Partitioning, concat_batches,
                    donating_call)
@@ -427,7 +428,12 @@ class HashAggregateExec(PhysicalPlan):
             return stats
 
         fn = self.governed_jit(("agg.mstats", tuple(layout)), build)
-        host = fn(batch).tolist()  # the one host read, between programs
+        # launch OUTSIDE the span: a first call warms up and captures,
+        # which the governor attributes to the compile lane — only the
+        # blocking read is device-blocked time
+        res = fn(batch)
+        with trace_span("device.block", site="agg.mstats"):
+            host = res.tolist()  # the one host read, between programs
         return list(zip(host[:-1:2], host[1:-1:2])), host[-1]
 
     def _mixed_build(self, spans, layout):

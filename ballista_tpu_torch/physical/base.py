@@ -317,11 +317,15 @@ def concat_batches(schema: Schema, batches: List[ColumnBatch]) -> ColumnBatch:
             d is not None and d is not dict_ for d in dicts
         ):
             from .. import columnar_registry
+            from ..observability import trace_span
 
-            dict_, remaps = columnar_registry.unify(dicts)
-            values_list = [
-                v if remap is None else columnar_registry.remap_codes(v, remap)
-                for v, remap in zip(values_list, remaps)]
+            with trace_span("host.dictionary", site="concat.unify",
+                            column=f.name, n_dicts=len(dicts)):
+                dict_, remaps = columnar_registry.unify(dicts)
+                values_list = [
+                    v if remap is None
+                    else columnar_registry.remap_codes(v, remap)
+                    for v, remap in zip(values_list, remaps)]
         vals = torch.cat(values_list)
         vs = [b.columns[i].validity for b in batches]
         if any(v is not None for v in vs):

@@ -315,7 +315,8 @@ class FusedDistinctCountExec(PhysicalPlan):
         cap = self.group_capacity
         while True:
             out, num_groups = self._get_fn(cap)(batch)
-            ng = int(num_groups)  # between programs
+            with trace_span("device.block", site="agg.distinct"):
+                ng = int(num_groups)  # between programs
             if ng <= cap:
                 # persist like HashAggregateExec: later collects skip the
                 # undersized attempt + retry sync

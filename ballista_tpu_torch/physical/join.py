@@ -42,6 +42,7 @@ from ..datatypes import Schema
 from ..errors import ExecutionError, NotImplementedError_
 from ..ingest import KeyedLocks
 from ..kernels import join as join_k
+from ..observability import trace_span
 from .base import PhysicalPlan, Partitioning, concat_batches, maybe_compact
 
 JOIN_TYPES = ("inner", "left", "semi", "anti", "full")
@@ -204,7 +205,8 @@ class JoinExec(PhysicalPlan):
             return stats
 
         scalars, live = self.governed_jit(("join.stats",), build)(bb)
-        host = scalars.tolist()  # ONE sync, between programs
+        with trace_span("device.block", site="join.stats"):
+            host = scalars.tolist()  # ONE sync, between programs
         return dict(zip(names, host)), live
 
     def _pick_mode(self, stats, ncols: int) -> str:
@@ -440,7 +442,9 @@ class JoinExec(PhysicalPlan):
                 hit |= self._mark_hits(pb, mode, key_tables, remaps,
                                        bkeys, blive)
         # selection, not blive: build rows with NULL join keys can never
-        # match but SQL still emits them with null probe columns
+        # match but SQL still emits them with null probe columns. The
+        # mask stays on the device, so the JAX package's host read here
+        # (its "join.unmatched" device.block span) has no counterpart
         yield self._unmatched_build_batch(build_batch,
                                           build_batch.selection & ~hit)
 
@@ -544,13 +548,16 @@ class JoinExec(PhysicalPlan):
             # pair per key column stays pinned
             cached = self._remap_cache.get(bcol)
             if cached is None or cached[0] is not bd or cached[1] is not pd_:
-                remap = columnar_registry.remap_between(pd_, bd)
-                if remap is None:  # equal content: identity map
-                    remap = np.arange(len(pd_), dtype=np.int64)
-                if len(remap) == 0:
-                    remap = [-1]
-                cached = (bd, pd_, torch.as_tensor(
-                    remap, dtype=torch.int64, device=pb.device))
+                with trace_span("host.dictionary", site="join.remap",
+                                column=bcol, n_build=len(bd),
+                                n_probe=len(pd_)):
+                    remap = columnar_registry.remap_between(pd_, bd)
+                    if remap is None:  # equal content: identity map
+                        remap = np.arange(len(pd_), dtype=np.int64)
+                    if len(remap) == 0:
+                        remap = [-1]
+                    cached = (bd, pd_, torch.as_tensor(
+                        remap, dtype=torch.int64, device=pb.device))
                 self._remap_cache[bcol] = cached
             out.append(cached[2])
         return tuple(out)
@@ -646,7 +653,10 @@ class JoinExec(PhysicalPlan):
             pend_bytes = 0
             if not pend:
                 return
-            totals = torch.stack([p[-1] for p in pend]).tolist()  # ONE sync
+            with trace_span("device.block", site="join.expand_totals",
+                            n=len(pend)):
+                # ONE sync
+                totals = torch.stack([p[-1] for p in pend]).tolist()
             for (pb, remaps, out, out_cap, _), t in zip(pend, totals):
                 while t > out_cap:  # rare: re-run at a ladder capacity
                     self.metrics().add_counter("expand_reruns")

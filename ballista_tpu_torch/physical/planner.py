@@ -21,6 +21,7 @@ from .. import expr as ex
 from ..logical import (
     Aggregate,
     EmptyRelation,
+    Explain,
     Filter,
     Join,
     Limit,
@@ -68,8 +69,13 @@ class PlannerOptions:
     join_partitions: int = 8
     join_swap: bool = True
     agg_partitions: Optional[int] = None
+    # raw settings snapshot: EXPLAIN ANALYZE resolves its AdaptiveConfig
+    # from here so analyzed plans run (and annotate) the same adaptive
+    # rules a plain collect would
+    adaptive_settings: Optional[Dict[str, str]] = None
     # the cluster's cost-feedback notes on these options
-    # (distributed/controlplane/costs.py), for EXPLAIN once ported
+    # (distributed/controlplane/costs.py); EXPLAIN renders them as a
+    # cost_feedback row
     cost_notes: tuple = ()
 
     @staticmethod
@@ -77,6 +83,7 @@ class PlannerOptions:
                       device) -> "PlannerOptions":
         opts = PlannerOptions(device=torch.device(device))
         s = settings or {}
+        opts.adaptive_settings = dict(s)
         if "join.partitioned.threshold" in s:
             v = s["join.partitioned.threshold"]
             opts.join_partition_threshold = (
@@ -156,6 +163,19 @@ def _create(plan: LogicalPlan, opts: PlannerOptions) -> PhysicalPlan:
 
     if isinstance(plan, EmptyRelation):
         return EmptyExec(opts.device, plan.produce_one_row)
+
+    if isinstance(plan, Explain):
+        # direct-call path (plan already optimized by the caller);
+        # execution.plan_logical captures the pre-optimization text too
+        from .explain import make_explain_analyze, render_explain
+
+        if plan.analyze:
+            return make_explain_analyze(
+                create_physical_plan(plan.input), plan.verbose,
+                plan.input.pretty(), opts.adaptive_settings, opts.device)
+        return render_explain(plan.input, create_physical_plan(plan.input),
+                              plan.verbose, opts.device,
+                              cost_notes=opts.cost_notes)
 
     raise NotImplementedError_(f"no physical plan for {type(plan).__name__}")
 

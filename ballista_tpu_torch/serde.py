@@ -4,10 +4,9 @@ The port of the JAX package's ``serde.py``, over the same wire types (the
 port's ``proto/`` is a byte-identical copy; both register one
 ``ballista.proto``). The protobuf carries no device, so deserializing a
 plan or a source takes an explicit ``device`` (keyword, required) and
-hands it to every source and operator it builds. Plan kinds whose
-modules are not ported yet raise :class:`SerdeError` naming their
-ROADMAP queue 1 item: the mesh operators (item 10) and EXPLAIN (item
-11). A system-table source is rebuilt from the rows it shipped with.
+hands it to every source and operator it builds. The mesh operators,
+not ported yet, raise :class:`SerdeError` naming ROADMAP queue 1 item
+10. A system-table source is rebuilt from the rows it shipped with.
 
 Equivalent of the reference's serde layer (reference:
 rust/core/src/serde/logical_plan/{to_proto.rs,from_proto.rs} and
@@ -395,6 +394,7 @@ def _plan_from_proto(n: pb.LogicalPlanNode, device) -> lp.LogicalPlan:
 
 def physical_to_proto(plan) -> pb.PhysicalPlanNode:
     from .physical.aggregate import HashAggregateExec
+    from .physical.explain import ExplainAnalyzeExec, ExplainExec
     from .physical.join import JoinExec
     from .physical import operators as ops
     from .physical.shuffle import ShuffleReaderExec, UnresolvedShuffleExec
@@ -465,6 +465,13 @@ def physical_to_proto(plan) -> pb.PhysicalPlanNode:
         n.unresolved_shuffle.partition_count = plan.partition_count
     elif isinstance(plan, ops.EmptyExec):
         n.empty.produce_one_row = plan.produce_one_row
+    elif isinstance(plan, ExplainExec):
+        n.explain.plan_type.extend(t for t, _ in plan.rows)
+        n.explain.plan.extend(p for _, p in plan.rows)
+    elif isinstance(plan, ExplainAnalyzeExec):
+        n.explain_analyze.input.CopyFrom(physical_to_proto(plan.inner))
+        n.explain_analyze.verbose = plan.verbose
+        n.explain_analyze.logical_text = plan.logical_text or ""
     else:
         raise SerdeError(f"cannot serialize physical plan {type(plan).__name__}")
     return n
@@ -480,9 +487,6 @@ def physical_from_proto(n: pb.PhysicalPlanNode, *, device):
 _LATER_ITEMS = {
     "mesh_join": "MeshJoinExec is not ported yet: ROADMAP queue 1 item 10",
     "mesh_agg": "MeshAggExec is not ported yet: ROADMAP queue 1 item 10",
-    "explain": "ExplainExec is not ported yet: ROADMAP queue 1 item 11",
-    "explain_analyze":
-        "ExplainAnalyzeExec is not ported yet: ROADMAP queue 1 item 11",
 }
 
 
@@ -572,6 +576,19 @@ def _physical_from_proto(n: pb.PhysicalPlanNode, device):
         )
     if kind == "empty":
         return ops.EmptyExec(device, n.empty.produce_one_row)
+    if kind == "explain":
+        from .physical.explain import ExplainExec
+
+        return ExplainExec(list(zip(n.explain.plan_type, n.explain.plan)),
+                           device)
+    if kind == "explain_analyze":
+        from .physical.explain import ExplainAnalyzeExec
+
+        return ExplainAnalyzeExec(
+            physical_from_proto(n.explain_analyze.input), device,
+            n.explain_analyze.verbose,
+            logical_text=n.explain_analyze.logical_text or None,
+        )
     raise SerdeError(f"unknown physical node {kind}")
 
 

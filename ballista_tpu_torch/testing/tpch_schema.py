@@ -75,3 +75,25 @@ def register_tpch(ctx, data_dir: str, tables=None, **kw):
         if not os.path.exists(path):
             path = os.path.join(data_dir, f"{name}.tbl")
         ctx.register_tbl(name, path, sch, primary_key=TPCH_PKS[name], **kw)
+
+
+_DDL_TYPES = {"int64": "bigint", "int32": "int32", "utf8": "varchar",
+              "date32": "date32", "decimal": "decimal"}
+
+
+def tpch_ddl(name: str, data_dir: str) -> str:
+    """``CREATE EXTERNAL TABLE`` of table ``name`` over the ``.tbl`` data
+    of a ``benchmarks/tpch/datagen.py`` directory: how a SQL-only client
+    (an Arrow Flight ``DoGet`` ticket) registers a table. The DDL's
+    ``decimal`` is scale 2, as every TPC-H decimal is."""
+    import os
+
+    path = os.path.join(data_dir, name)
+    if not os.path.exists(path):
+        path = os.path.join(data_dir, f"{name}.tbl")
+    cols = []
+    for f in TPCH_SCHEMAS[name].fields:
+        assert f.dtype.kind != "decimal" or f.dtype.scale == 2, f
+        cols.append(f"{f.name} {_DDL_TYPES[f.dtype.kind]}")
+    return (f"CREATE EXTERNAL TABLE {name} ({', '.join(cols)}) "
+            f"STORED AS TBL LOCATION '{path}'")

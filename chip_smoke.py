@@ -151,14 +151,39 @@ non-zero exit):
    a subprocess on the card: it answers q1 at SF0.05 through
    ``BallistaContext.remote`` and exits 0 through the drain path on
    SIGTERM;
-15. in a process of its own, a governed program that cannot be captured
+15. observability, EXPLAIN and Flight, at SF1: (a) a fresh process
+   (``--first-collect``) runs q1 cold, warm, and cold again after
+   clearing the table cache and the governor, and prints each one's
+   latency ledger (``ctx.last_query_ledger()``) and lanes
+   (``system.query_lanes``): the phases must sum to the wall within
+   1 ms, both cold collects must show compile time, the warm one none;
+   (b) ``EXPLAIN`` and ``EXPLAIN VERBOSE`` of q1 and q5 on the card must
+   equal the port's text on the CPU, and ``EXPLAIN ANALYZE`` of each
+   its operators and output rows, the kernel's launches counted around
+   each (>= 2) and every observed call bit-equal to the plain version;
+   (c) ``EXPLAIN ANALYZE`` q1 through a ``LocalCluster(2, 2)`` on the
+   card runs as one task whose operators and rows equal the standalone
+   ANALYZE's, launches counted; (d) ``scheduler_main --flight-port 0``
+   in a process of its own with two executors of this process on the
+   card: a ``pyarrow.flight`` client registers the tables with DDL
+   tickets, q1 (launches counted) and ``EXPLAIN`` q1 equal the
+   standalone results, q11 is refused as a ``FlightServerError`` naming
+   ROADMAP item 9c, and SIGTERM drains the scheduler (exit 0); (e) a
+   cold q5 with ``on_progress`` sampling every 10 ms equals the cold q5
+   without it and captures as many graphs, its last snapshot at
+   fraction 1.0; (f) warm q1 timed in turns (7 rounds, medians) with
+   the ledger and the query history on, with both off, and without the
+   recorder;
+16. in a process of its own, a governed program that cannot be captured
    (it reads a device value on the host) must raise ``CaptureError``
    rather than run eagerly;
-16. the kernel list, as one JSON line; its times, replicas and VEC are
+17. the kernel list, as one JSON line; its times, replicas and VEC are
     those on q1's main-path inputs, with q5's launches and times beside
     them, and the launches of q5 through the adapted join, of q1 over
-    the streamed lineitem, of q1 and q5 from Parquet and of q1 and q5
-    through the cluster's executor tasks (their first runs).
+    the streamed lineitem, of q1 and q5 from Parquet, of q1 and q5
+    through the cluster's executor tasks (their first runs), of
+    ``EXPLAIN ANALYZE`` q1 and q5 standalone and q1 through the cluster,
+    and of q1 sent over Arrow Flight.
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -2546,6 +2571,485 @@ def phase_cluster(data_dir: str, small_dir: str, small_want: dict):
             "small_s": small_s, "binary": binary, "seconds": secs}, launches
 
 
+# -- phase 15 ---------------------------------------------------------------
+
+
+def analyze_operators(text: str) -> list:
+    """(operator line without its metrics and ``[cache: ...]`` mark,
+    output_rows) for each line of a ``plan_with_metrics`` text: what an
+    EXPLAIN ANALYZE must agree on across devices and paths (times,
+    compile counts, memory gauges and cache hits are measurements)."""
+    import re
+
+    out = []
+    for line in text.splitlines():
+        head, _, metrics = line.partition(", metrics=[")
+        head = re.sub(r" \[cache: [a-z|]+\]", "", head)
+        rows = re.search(r"output_rows=(\d+)", metrics)
+        out.append((head, int(rows.group(1)) if rows else None))
+    return out
+
+
+def explain_rows(out) -> dict:
+    return dict(zip(list(out["plan_type"]), list(out["plan"])))
+
+
+def ledger_line(label: str, led: dict, lanes: dict) -> dict:
+    """Checks that a standalone ledger's phases and unattributed remainder
+    sum to its wall within 1 ms, prints it with its lanes, returns both."""
+    total = sum(led["phases"].values()) + led["unattributed_seconds"]
+    if abs(total - led["wall_seconds"]) > 1e-3:
+        raise AssertionError(f"{label}: ledger phases sum to {total:.6f} s, "
+                             f"wall {led['wall_seconds']:.6f} s: {led}")
+    row = {"wall_s": led["wall_seconds"], "phases": led["phases"],
+           "unattributed_s": led["unattributed_seconds"], "lanes": lanes}
+    log(f"# {label}: ledger {json.dumps(row)}")
+    return row
+
+
+def first_collect_child(data_dir: str) -> int:
+    """Run in a fresh process (``--first-collect``): q1 at SF1 cold, warm,
+    then cold again after clearing the table cache and the governor, each
+    with its latency ledger and lanes printed as one ``FIRST_COLLECT``
+    JSON line. The first cold collect carries every first-time cost of
+    the process; the second only the query's own."""
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import compile_stats, governor
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    sql = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+    ctx = BallistaContext.standalone()
+    register_tpch(ctx, data_dir, tables=["lineitem"])
+    runs = {}
+    for label in ("process_first", "warm", "cold_again"):
+        if label == "cold_again":
+            residency._reset_for_tests()
+            governor().clear()
+        st0 = compile_stats()
+        t0 = time.perf_counter()
+        ctx.sql(sql).to_pydict()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st1 = compile_stats()
+        led = ctx.last_query_ledger()
+        # the programs whose first calls took longest (a cleared governor
+        # before "cold_again" leaves only that collect's entries)
+        firsts = sorted(governor().entry_rows(),
+                        key=lambda r: -r["compile_seconds"])[:6]
+        lanes = ctx.sql("select job_id, lane, seconds from "
+                        "system.query_lanes").to_pydict()
+        runs[label] = {
+            "ledger": led, "host_wall_s": wall,
+            "lanes": {ln: s for j, ln, s in zip(lanes["job_id"],
+                                                lanes["lane"],
+                                                lanes["seconds"])
+                      if j == led["job_id"]},
+            "captures": st1["graph_captures"] - st0["graph_captures"],
+            "capture_s": st1["capture_seconds"] - st0["capture_seconds"],
+            "slowest_first_calls": [
+                (r["namespace"], r["compile_seconds"]) for r in firsts],
+        }
+    print("FIRST_COLLECT " + json.dumps(runs), flush=True)
+    return 0
+
+
+def phase_first_collect(data_dir: str) -> dict:
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, __file__, "--first-collect", data_dir],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"first-collect process failed "
+                             f"({proc.returncode}):\n{proc.stderr[-3000:]}")
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("FIRST_COLLECT "))
+    runs = json.loads(line[len("FIRST_COLLECT "):])
+    rows = {}
+    for label, run in runs.items():
+        rows[label] = ledger_line(f"q1 {label.replace('_', ' ')}",
+                                  run["ledger"], run["lanes"])
+        rows[label].update(host_wall_s=run["host_wall_s"],
+                           captures=run["captures"],
+                           capture_s=run["capture_s"],
+                           slowest_first_calls=run["slowest_first_calls"])
+    for label in ("process_first", "cold_again"):
+        if rows[label]["phases"]["compile"] <= 0.0:
+            raise AssertionError(f"q1 {label}: no compile in its ledger")
+        if rows[label]["lanes"]["compile_trace_lower"] <= 0.0:
+            raise AssertionError(f"q1 {label}: no compile lane")
+    if rows["warm"]["phases"]["compile"] != 0.0 or rows["warm"]["captures"]:
+        raise AssertionError(f"warm q1 compiled: {rows['warm']}")
+    log(f"# first collect: the process's first q1 {rows['process_first']['wall_s']:.4f} s "
+        f"(compile {rows['process_first']['phases']['compile']:.4f} s), "
+        f"a later cold q1 {rows['cold_again']['wall_s']:.4f} s (compile "
+        f"{rows['cold_again']['phases']['compile']:.4f} s), warm "
+        f"{rows['warm']['wall_s']:.4f} s; child process "
+        f"{time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def analyze_on_card(ctx, sql: str, label: str):
+    """EXPLAIN ANALYZE of ``sql`` on the card: (rows, kernel launches),
+    every observed kernel call held against the plain version."""
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    with KernelCallLog() as spy:
+        torch.cuda.synchronize()
+        ds.launch_count = 0
+        out = ctx.sql("EXPLAIN ANALYZE " + sql).to_pydict()
+        torch.cuda.synchronize()
+        n_launch = ds.launch_count
+    check_observed(spy.calls, label)
+    return explain_rows(out), n_launch
+
+
+def phase_explain(data_dir: str, launches: dict) -> dict:
+    """EXPLAIN and EXPLAIN ANALYZE of q1 and q5 at SF1 on the card against
+    the port on the CPU: the plain EXPLAIN text equal, ANALYZE's operators
+    and output rows equal, the kernel's launches counted."""
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    gpu = BallistaContext.standalone()
+    cpu = BallistaContext.standalone(device="cpu")
+    register_tpch(gpu, data_dir)
+    register_tpch(cpu, data_dir)
+    rows = {}
+    for q in ("q1", "q5"):
+        sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+        for verbose in ("", "VERBOSE "):
+            text = f"EXPLAIN {verbose}" + sql
+            got = explain_rows(gpu.sql(text).to_pydict())
+            if got != explain_rows(cpu.sql(text).to_pydict()):
+                raise AssertionError(f"{text[:40]}...: the card's plan text "
+                                     f"differs from the CPU's")
+        t0 = time.perf_counter()
+        analyzed, n_launch = analyze_on_card(gpu, sql, f"ANALYZE {q}")
+        secs = time.perf_counter() - t0
+        want = explain_rows(cpu.sql("EXPLAIN ANALYZE " + sql).to_pydict())
+        mine = analyze_operators(analyzed["plan_with_metrics"])
+        if mine != analyze_operators(want["plan_with_metrics"]):
+            raise AssertionError(
+                f"ANALYZE {q}: operators or rows differ from the CPU's:\n"
+                f"{analyzed['plan_with_metrics']}\n--- cpu:\n"
+                f"{want['plan_with_metrics']}")
+        if n_launch < 2:
+            raise AssertionError(f"ANALYZE {q}: {n_launch} kernel launches")
+        launches[f"explain_{q}"] = n_launch
+        rows[q] = {"wall_s": secs, "launches": n_launch,
+                   "total_elapsed": analyzed["total_elapsed"],
+                   "memory": analyzed["memory"], "operators": len(mine)}
+        log(f"# EXPLAIN ANALYZE {q} on the card: {secs:.4f} s, "
+            f"{len(mine)} operator lines == the CPU's (rows), kernel "
+            f"launches {n_launch}; memory {analyzed['memory']}")
+        if q == "q1":
+            log(analyzed["plan_with_metrics"].rstrip())
+    rows["gpu_ctx"] = gpu
+    return rows
+
+
+def phase_cluster_explain(data_dir: str, standalone_q1: str,
+                          launches: dict) -> dict:
+    """EXPLAIN ANALYZE q1 through ``LocalCluster(2, 2)`` on the card: one
+    task; its operators and rows equal the standalone ANALYZE's."""
+    from ballista_tpu_torch.distributed.executor import LocalCluster
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    sql = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+    cluster = LocalCluster(num_executors=2, concurrent_tasks=2)
+    try:
+        check_executors(cluster)
+        ctx = cluster_context(cluster, data_dir)
+        with KernelCallLog() as spy, TaskPlanLog() as plans:
+            torch.cuda.synchronize()
+            ds.launch_count = 0
+            t0 = time.perf_counter()
+            out = explain_rows(ctx.sql("EXPLAIN ANALYZE " + sql).collect())
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n_launch = ds.launch_count
+        check_observed(spy.calls, "cluster ANALYZE q1")
+        kinds = [type(p).__name__ for p in plans.plans]
+        if kinds != ["ExplainAnalyzeExec"]:
+            raise AssertionError(f"cluster ANALYZE q1 ran the tasks {kinds}, "
+                                 f"expected one ExplainAnalyzeExec")
+        inner = plans.plans[0].inner
+        check_plans_on_card([inner], "cluster ANALYZE q1")
+        if analyze_operators(out["plan_with_metrics"]) != \
+                analyze_operators(standalone_q1):
+            raise AssertionError(
+                f"cluster ANALYZE q1 differs from the standalone one:\n"
+                f"{out['plan_with_metrics']}\n--- standalone:\n"
+                f"{standalone_q1}")
+        if n_launch < 2:
+            raise AssertionError(f"cluster ANALYZE q1: {n_launch} launches")
+    finally:
+        cluster.shutdown()
+    launches["cluster_explain_q1"] = n_launch
+    log(f"# EXPLAIN ANALYZE q1 through the cluster: one task, {secs:.4f} s, "
+        f"kernel launches {n_launch}; operators and rows == standalone")
+    return {"wall_s": secs, "launches": n_launch}
+
+
+def phase_flight(data_dir: str, want_q1: dict, explain_q1: dict,
+                 launches: dict) -> dict:
+    """``scheduler_main --flight-port 0`` in a process of its own (it
+    plans on the CPU), two executors of this process on the card, and a
+    stock ``pyarrow.flight`` client: DDL tickets register the tables, q1
+    and EXPLAIN q1 equal the standalone results, q11 is refused as a
+    ``FlightServerError`` naming ROADMAP item 9c; SIGTERM drains it."""
+    import re
+    import signal
+    import tempfile
+
+    import pyarrow.flight as paflight
+
+    from ballista_tpu_torch.distributed.executor import (Executor,
+                                                         ExecutorConfig)
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.testing.tpch_schema import tpch_ddl
+
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ballista_tpu_torch.distributed.scheduler_main",
+         "--port", "0", "--flight-port", "0", "--metrics-port", "-1",
+         "--bind-host", "127.0.0.1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines, executors, work = [], [], tempfile.mkdtemp(prefix="flight-")
+    try:
+        port = fport = None
+        deadline = time.time() + 120
+        while (port is None or fport is None) and time.time() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            m = re.search(r"scheduler listening on [\d.]+:(\d+)", line)
+            port = int(m.group(1)) if m else port
+            m = re.search(r"Flight SQL endpoint on [\d.]+:(\d+)", line)
+            fport = int(m.group(1)) if m else fport
+        if port is None or fport is None:
+            raise AssertionError("scheduler_main printed no ports:\n"
+                                 + "".join(lines))
+        for i in range(2):
+            ex = Executor(ExecutorConfig(
+                scheduler_host="127.0.0.1", scheduler_port=port,
+                work_dir=os.path.join(work, f"e{i}"), concurrent_tasks=2,
+                metrics_port=-1))
+            ex.start()
+            executors.append(ex)
+        client = paflight.connect(f"grpc://127.0.0.1:{fport}")
+        for table in ("lineitem", "nation", "supplier", "partsupp"):
+            client.do_get(paflight.Ticket(
+                tpch_ddl(table, data_dir).encode())).read_all()
+        sql = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+        with KernelCallLog() as spy:
+            torch.cuda.synchronize()
+            ds.launch_count = 0
+            t0 = time.perf_counter()
+            table = client.do_get(paflight.Ticket(sql.encode())).read_all()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n_launch = ds.launch_count
+        check_observed(spy.calls, "Flight q1")
+        got = {c: np.asarray(table[c].to_numpy(zero_copy_only=False))
+               for c in table.column_names}
+        assert_close_results("Flight q1 vs standalone", got, want_q1)
+        if n_launch < 2:
+            raise AssertionError(f"Flight q1: {n_launch} kernel launches")
+        plan = client.do_get(paflight.Ticket(
+            ("EXPLAIN " + sql).encode())).read_all().to_pydict()
+        if dict(zip(plan["plan_type"], plan["plan"])) != explain_q1:
+            raise AssertionError("Flight EXPLAIN q1 differs from standalone")
+        q11 = open(os.path.join(QUERY_DIR, "q11.sql")).read()
+        try:
+            client.do_get(paflight.Ticket(q11.encode())).read_all()
+        except paflight.FlightServerError as e:
+            if "item 9c" not in str(e):
+                raise
+            refusal = str(e).splitlines()[0][:160]
+        else:
+            raise AssertionError("Flight q11 was not refused")
+        client.close()
+        while executors:  # before the scheduler, which they poll
+            executors.pop().stop()
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+        lines.append(out)
+    finally:
+        for ex in executors:
+            ex.stop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    text = "".join(lines)
+    if proc.returncode != 0 or "draining" not in text:
+        raise AssertionError(f"scheduler_main did not drain on SIGTERM "
+                             f"(exit {proc.returncode}):\n{text[-3000:]}")
+    launches["flight_q1"] = n_launch
+    log(f"# Flight: q1 in {secs:.4f} s == standalone, kernel launches "
+        f"{n_launch}; EXPLAIN q1 == standalone; q11 refused ({refusal}); "
+        f"scheduler drained on SIGTERM")
+    return {"q1_s": secs, "launches": n_launch}
+
+
+def phase_progress_capture(data_dir: str) -> dict:
+    """Cold q5 at SF1 with ``on_progress`` sampling every 10 ms while the
+    collect's thread captures its graphs, against the same cold q5 with
+    no sampler: equal results and the same number of captures."""
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import compile_stats, governor
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    sql = open(os.path.join(QUERY_DIR, "q5.sql")).read()
+    os.environ["BALLISTA_PROGRESS_INTERVAL_SECS"] = "0.01"
+    runs = {}
+    try:
+        for label in ("plain", "sampled"):
+            residency._reset_for_tests()
+            governor().clear()
+            ctx = BallistaContext.standalone()
+            register_tpch(ctx, data_dir)
+            samples = []
+            st0 = compile_stats()
+            t0 = time.perf_counter()
+            out = ctx.sql(sql).to_pydict(
+                on_progress=samples.append if label == "sampled" else None)
+            torch.cuda.synchronize()
+            runs[label] = {
+                "out": out, "wall_s": time.perf_counter() - t0,
+                "captures": compile_stats()["graph_captures"]
+                - st0["graph_captures"], "samples": samples}
+    finally:
+        os.environ.pop("BALLISTA_PROGRESS_INTERVAL_SECS", None)
+    plain, sampled = runs["plain"], runs["sampled"]
+    assert_equal_results("cold q5 with the sampler vs without",
+                         sampled["out"], plain["out"])
+    if sampled["captures"] != plain["captures"]:
+        raise AssertionError(f"cold q5 captured {sampled['captures']} graphs "
+                             f"with the sampler, {plain['captures']} without")
+    snaps = sampled["samples"]
+    if len(snaps) < 2 or snaps[-1]["fraction"] != 1.0:
+        raise AssertionError(f"cold q5 progress: {snaps[-3:]}")
+    fractions = [s["fraction"] for s in snaps]
+    if fractions != sorted(fractions):
+        raise AssertionError(f"cold q5 progress fell: {fractions}")
+    row = {"captures": plain["captures"], "snapshots": len(snaps),
+           "plain_s": plain["wall_s"], "sampled_s": sampled["wall_s"]}
+    log(f"# progress during capture: cold q5 {json.dumps(row)}; "
+        f"results equal, captures equal, last fraction 1.0")
+    return row
+
+
+def phase_recorder_overhead(ctx, pairs: int = 7) -> dict:
+    """Warm q1 at SF1, in turns: the collect with the ledger and the query
+    history on (``BALLISTA_LEDGER`` on, ``BALLISTA_QUERY_LOG_DIR`` set),
+    with both off, and the collect without the recorder at all (the
+    governed collect alone, as before the recorder was wired in);
+    ``pairs`` rounds, medians and quartiles; and the recorder's parts,
+    timed inside the first two variants (mean ms a collect)."""
+    import tempfile
+
+    from ballista_tpu_torch.observability import ledger as obs_ledger
+    from ballista_tpu_torch.observability import systables
+
+    sql = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+    df = ctx.sql(sql)
+    df.to_pydict()  # warm: cached scans, captured programs
+    log_dir = tempfile.mkdtemp(prefix="query-log-")
+
+    def knobs(on: bool):
+        if on:
+            os.environ["BALLISTA_LEDGER"] = "on"
+            os.environ["BALLISTA_QUERY_LOG_DIR"] = log_dir
+        else:
+            os.environ["BALLISTA_LEDGER"] = "off"
+            os.environ.pop("BALLISTA_QUERY_LOG_DIR", None)
+        obs_ledger.reconfigure()
+
+    def bare():
+        _, df._phys = ctx._standalone_collect_inner(df.plan, df._phys)
+
+    variants = {"on": (True, df.to_pydict), "off": (False, df.to_pydict),
+                "bare": (False, bare)}
+    times = {k: [] for k in variants}
+    parts = {}  # (variant, part) -> seconds summed over the rounds
+    timed = [(systables.StandaloneQueryRecorder, "__init__", "start"),
+             (systables.StandaloneQueryRecorder, "_lanes", "lanes"),
+             (systables.StandaloneQueryRecorder, "_build_ledger", "ledger"),
+             (systables.StandaloneQueryRecorder, "finish", "finish"),
+             (systables.QueryHistoryLog, "append", "history_append")]
+    current = ["on"]
+
+    def timing(fn, part):
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                key = (current[0], part)
+                parts[key] = parts.get(key, 0.0) + time.perf_counter() - t
+        return wrapper
+
+    saved = [(cls, name, getattr(cls, name)) for cls, name, _ in timed]
+    for cls, name, part in timed:
+        setattr(cls, name, timing(getattr(cls, name), part))
+    try:
+        for _ in range(pairs):
+            for name, (on, fn) in variants.items():
+                knobs(on)
+                current[0] = name
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times[name].append(time.perf_counter() - t0)
+    finally:
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
+        os.environ.pop("BALLISTA_LEDGER", None)
+        os.environ.pop("BALLISTA_QUERY_LOG_DIR", None)
+        obs_ledger.reconfigure()
+    row = {}
+    for name, ts in times.items():
+        q = np.percentile(ts, [25, 50, 75])
+        row[name] = {"median_s": float(q[1]), "p25_s": float(q[0]),
+                     "p75_s": float(q[2])}
+    row["on_vs_off"] = row["on"]["median_s"] / row["off"]["median_s"] - 1
+    row["on_vs_bare"] = row["on"]["median_s"] / row["bare"]["median_s"] - 1
+    row["parts_ms"] = {f"{v}.{part}": secs / pairs * 1e3
+                       for (v, part), secs in sorted(parts.items())}
+    log(f"# recorder overhead, warm q1 ({pairs} rounds in turns): "
+        f"{json.dumps(row)}")
+    return row
+
+
+def phase_observability(card: str, data_dir: str, want_q1: dict) -> tuple:
+    """Phase 15: the first-collect ledger of a fresh process, EXPLAIN and
+    EXPLAIN ANALYZE standalone and through the cluster, Arrow Flight, the
+    progress sampler during captures, and the recorder's overhead."""
+    t0 = time.perf_counter()
+    launches = {}
+    row = {"first_collect": phase_first_collect(data_dir)}
+    explain = phase_explain(data_dir, launches)
+    gpu = explain.pop("gpu_ctx")
+    row["explain"] = explain
+    sql1 = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+    standalone_q1 = explain_rows(gpu.sql("EXPLAIN ANALYZE " + sql1)
+                                 .to_pydict())["plan_with_metrics"]
+    row["cluster_explain"] = phase_cluster_explain(data_dir, standalone_q1,
+                                                   launches)
+    explain_q1 = explain_rows(gpu.sql("EXPLAIN " + sql1).to_pydict())
+    row["flight"] = phase_flight(data_dir, want_q1, explain_q1, launches)
+    row["progress"] = phase_progress_capture(data_dir)
+    row["recorder"] = phase_recorder_overhead(gpu)
+    row["seconds"] = time.perf_counter() - t0
+    log(f"# phase 15 (observability, EXPLAIN and Flight) took "
+        f"{row['seconds']:.1f} s on {card}")
+    return row, launches
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -2585,6 +3089,9 @@ def main() -> int:
                     help="also profile one warm collect of q1, q3 and q5")
     ap.add_argument("--capture-failure-check", action="store_true",
                     help="only check that a capture failure raises")
+    ap.add_argument("--first-collect", metavar="DATA_DIR",
+                    help="only run phase 15's first collects of q1 (in the "
+                         "fresh process phase 15 starts)")
     args = ap.parse_args()
     card_id = use_one_card()
     if not torch.cuda.is_available():
@@ -2593,6 +3100,8 @@ def main() -> int:
     if args.capture_failure_check:
         capture_failure_check()
         return 0
+    if args.first_collect:
+        return first_collect_child(args.first_collect)
     t_start = time.perf_counter()
     card = phase_card(card_id)
     phase_build()
@@ -2621,6 +3130,8 @@ def main() -> int:
     cluster_row, cluster_launches = phase_cluster(data_dir, small_dir,
                                                   small_results)
     del small_results
+    observability_row, observability_launches = phase_observability(
+        card, data_dir, cpu_results["q1"])
     phase_capture_failure()
     if args.profile:
         for q in ("q1", "q3", "q5"):
@@ -2635,6 +3146,7 @@ def main() -> int:
     log(f"# sf{SMALL_SCALE:g} seconds on the card: {json.dumps(small_secs)}")
     log(f"# parquet: {json.dumps(parquet_row)}")
     log(f"# cluster: {json.dumps(cluster_row)}")
+    log(f"# observability: {json.dumps(observability_row)}")
     kernels = [{
         "name": "dense_grouped_sums",
         "route": "cuda",
@@ -2665,6 +3177,11 @@ def main() -> int:
         "parquet_q5_launches": parquet_launches[("q5", "cold")],
         "cluster_q1_launches": cluster_launches[("q1", "first")],
         "cluster_q5_launches": cluster_launches[("q5", "first")],
+        "explain_analyze_q1_launches": observability_launches["explain_q1"],
+        "explain_analyze_q5_launches": observability_launches["explain_q5"],
+        "cluster_explain_analyze_q1_launches":
+            observability_launches["cluster_explain_q1"],
+        "flight_q1_launches": observability_launches["flight_q1"],
         "q5_ms": q5_main["ms"],
         "q5_call_ms": q5_main["call_ms"],
         "q5_plain_ms": q5_main["plain_ms"],

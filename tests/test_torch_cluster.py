@@ -29,11 +29,12 @@ two tasks):
   its code);
 - a server-planned (``plan.server=on``) q11 fails naming ROADMAP queue
   1 item 9c: its scalar subquery would run on the scheduler's CPU;
-- the binaries' options that need unported modules (etcd state, the
-  Flight endpoint, mesh groups) exit with ``NotImplementedError_``
-  naming their ROADMAP item, and those that only configure them
-  (``--num-devices``, the other mesh-group flags, ``--etcd-urls``) are
-  not accepted;
+- the binaries' options that need unported modules (mesh groups) exit
+  with ``NotImplementedError_`` naming their ROADMAP item, and those
+  that only configure them (``--num-devices``, the other mesh-group
+  flags) are not accepted; ``scheduler_main`` starts with etcd state
+  (``--state etcd:``, ``--etcd-urls``, over the in-process
+  ``FakeEtcdServer``) and with ``--flight-port``, and drains on SIGTERM;
 - ``python -m ballista_tpu_torch.distributed.executor_main --local
   --device cpu``, with torch reporting four cards, reports one device,
   answers q1 through ``BallistaContext.remote`` and exits 0 through the
@@ -71,8 +72,8 @@ from ballista_tpu_torch.observability import metrics as port_metrics
 from ballista_tpu_torch.proto import ballista_pb2 as pb
 from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
-from torch_warm_path import (assert_equals_reference, generate_tpch,
-                             pinned_threads, port_ctx, sql)
+from torch_warm_path import (assert_equals_reference, fresh_registries,
+                             generate_tpch, pinned_threads, port_ctx, sql)
 
 QUERIES = ["q1", "q3", "q5", "q13"]
 # hash shuffles forced (co-partitioned joins, a shuffled aggregate), so
@@ -115,7 +116,10 @@ def clusters():
             return td
         return task_definition
 
-    with pytest.MonkeyPatch.context() as mp:
+    # fresh dictionary registries in both packages: the shuffle files'
+    # stamps must not depend on what other test files of this worker
+    # process scanned before (torch_warm_path.fresh_registries)
+    with pytest.MonkeyPatch.context() as mp, fresh_registries():
         for cls in (SchedulerService, RefService):
             mp.setattr(cls, "_task_definition", recording(cls))
         port = LocalCluster(num_executors=2, concurrent_tasks=2,
@@ -404,6 +408,78 @@ def test_scheduler_refuses_a_mesh_fleet():
         _fuse_mesh_stages(["a"], 2)
 
 
+def _replan_in_order(pkg: str, tpch_dir: str):
+    """q3's stages (hash shuffles forced) saved into a fresh scheduler
+    state of package ``pkg``, then the re-planner run as the scheduler
+    runs it when stage 1 (the build of stage 5's join) completes before
+    stage 2 (the build of stage 4's, whose probe is stage 3): returns
+    (stage 4's task count, the producers stage 5's probe layout reads
+    from stage 4)."""
+    import importlib
+
+    def mod(name):
+        return importlib.import_module(f"{pkg}.{name}")
+
+    types = mod("distributed.types")
+    pkg_serde = mod("serde")
+    planner = mod("distributed.planner")
+    if pkg == "ballista_tpu_torch":
+        ctx = port_ctx(tpch_dir, **SHUFFLED)
+        phys = mod("execution").plan_logical(ctx.sql(sql("q3")).plan,
+                                             ctx._planner_options())
+    else:
+        from ballista_tpu.client import BallistaContext as RefContext
+        from ballista_tpu.physical.planner import PlannerOptions
+        from benchmarks.tpch.schema_def import \
+            register_tpch as register_reference
+
+        ctx = RefContext.standalone(**SHUFFLED)
+        register_reference(ctx, tpch_dir, "tbl")
+        phys = mod("execution").plan_logical(
+            ctx.sql(sql("q3")).plan, PlannerOptions.from_settings(SHUFFLED))
+    state_mod = mod("distributed.state")
+    state = state_mod.SchedulerState(state_mod.MemoryBackend(), "order")
+    job = "order"
+    state.save_job_settings(job, SHUFFLED)
+    for st in planner.DistributedPlanner().plan_query_stages(job, phys):
+        deps = [sid for u in planner.find_unresolved_shuffles(st.child)
+                for sid in u.query_stage_ids]
+        spec = None
+        if st.shuffle_output_partitions:
+            spec = ([pkg_serde.expr_to_proto(e).SerializeToString()
+                     for e in st.shuffle_hash_exprs or []],
+                    st.shuffle_output_partitions)
+        n = st.output_partitioning().num_partitions
+        state.save_stage_plan(
+            job, st.stage_id,
+            pkg_serde.physical_to_proto(st.child).SerializeToString(), n,
+            deps, spec)
+        for p in range(n):
+            state.save_task_status(types.TaskStatus(
+                types.PartitionId(job, st.stage_id, p)))
+    replan = mod("adaptive.replanner").replan_on_stage_complete
+    for done, blocked in ((1, 5), (2, 4)):
+        for p in range(state.get_stage_plan(job, done).num_partitions):
+            state.save_task_status(types.TaskStatus(
+                types.PartitionId(job, done, p), state="completed",
+                stats={"num_rows": 10, "num_bytes": 1000}))
+        replan(state, job, done, [], [blocked])
+    layout = state.get_stage_plan(job, 5).reader_layouts[4]
+    return state.get_stage_plan(job, 4).num_partitions, len(layout)
+
+
+def test_demotion_keeps_a_laid_out_probe_stage(tpch_dir):
+    """When stage 5's join is demoted first, its probe reads are laid out
+    one task of stage 4 each; stage 4's own demotion must then leave its
+    task count alone, or stage 5's tasks past the new count fail (the
+    cluster's q3 failed that way under load). The JAX package's
+    re-planner shrinks stage 4 (a reference fault, ROADMAP queue 3)."""
+    tasks, producers = _replan_in_order("ballista_tpu_torch", tpch_dir)
+    assert tasks == producers == 8
+    ref_tasks, ref_producers = _replan_in_order("ballista_tpu", tpch_dir)
+    assert (ref_tasks, ref_producers) == (2, 8)
+
+
 VERBATIM = [
     "distributed/config.py", "distributed/state.py",
     "distributed/admission.py", "distributed/client.py",
@@ -418,6 +494,25 @@ VERBATIM = [
 # copies whose docstrings drop the JAX package's history references:
 # their code (the syntax tree without docstrings) is compared
 SAME_CODE = ["distributed/controlplane/autoscaler.py"]
+# copies whose compile readers read the port's governor
+# (observability/export.py: COMPILE_SPAN, COMPILE_SECONDS, COMPILE_STATS)
+# instead of the JAX governor's names: every hunk that differs reads
+# those on the port's side and the JAX names on the reference's
+COMPILE_READERS = ["observability/export.py", "observability/profiler.py",
+                   "observability/distributed.py"]
+_PORT_COMPILE_NAMES = ("COMPILE_", "compile.capture")
+_JAX_COMPILE_NAMES = ("compile.jit", "compile_seconds", "trace_seconds",
+                      "backend_compiles", "COMPILE_")
+
+
+def _differing_hunks(mine: str, theirs: str):
+    import difflib
+
+    a, b = theirs.splitlines(), mine.splitlines()
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(
+            None, a, b, autojunk=False).get_opcodes():
+        if tag != "equal":
+            yield "\n".join(a[i1:i2]), "\n".join(b[j1:j2])
 
 
 def _code(text: str) -> str:
@@ -447,6 +542,12 @@ def test_copied_module_equals_the_reference(module):
     mine, theirs = _texts(module)
     if module in SAME_CODE:
         assert _code(mine) == _code(theirs)
+    elif module in COMPILE_READERS:
+        hunks = list(_differing_hunks(mine, theirs))
+        assert hunks
+        for old, new in hunks:
+            assert any(n in new for n in _PORT_COMPILE_NAMES), new
+            assert not old or any(n in old for n in _JAX_COMPILE_NAMES), old
     else:
         assert mine == theirs
 
@@ -524,19 +625,12 @@ _MESH_GROUP_FLAGS = ["--num-devices", "4", "--mesh-group-rank", "1",
 
 
 @pytest.mark.parametrize("binary,args,expected", [
-    ("scheduler_main", ["--state", "etcd:localhost:2379"],
-     ["NotImplementedError_", "item 9b"]),
-    ("scheduler_main", ["--flight-port", "0"],
-     ["NotImplementedError_", "item 9b"]),
     ("executor_main", ["--local", "--device", "cpu",
                        "--mesh-group-size", "2"],
      ["NotImplementedError_", "item 10"]),
-    ("scheduler_main", ["--etcd-urls", "localhost:2379"],
-     ["unrecognized arguments: --etcd-urls localhost:2379"]),
     ("executor_main", ["--local", "--device", "cpu"] + _MESH_GROUP_FLAGS,
      ["unrecognized arguments: " + " ".join(_MESH_GROUP_FLAGS)]),
-], ids=["etcd_state", "flight_port", "mesh_group", "etcd_urls",
-        "mesh_group_flags"])
+], ids=["mesh_group", "mesh_group_flags"])
 def test_unported_binary_options_raise(binary, args, expected):
     proc = subprocess.run(
         [sys.executable, "-m", f"ballista_tpu_torch.distributed.{binary}",
@@ -546,6 +640,54 @@ def test_unported_binary_options_raise(binary, args, expected):
     assert proc.returncode != 0
     for text in expected:
         assert text in proc.stderr, proc.stderr[-2000:]
+
+
+@pytest.fixture
+def fake_etcd():
+    from ballista_tpu_torch.distributed.etcd import FakeEtcdServer
+
+    server = FakeEtcdServer()
+    yield f"localhost:{server.port}"
+    server.stop()
+
+
+@pytest.mark.parametrize("args,expected", [
+    (["--state", "etcd:{etcd}"], ["(backend=etcd"]),
+    (["--flight-port", "0"], ["Arrow Flight SQL endpoint on"]),
+    (["--config-backend", "etcd", "--etcd-urls", "{etcd}"],
+     ["(backend=etcd"]),
+], ids=["etcd_state", "flight_port", "etcd_urls"])
+def test_scheduler_binary_state_and_flight_options(fake_etcd, args,
+                                                   expected):
+    """etcd state and the Flight endpoint: the binary starts with each,
+    prints what it serves, and exits 0 through the drain path on
+    SIGTERM."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "ballista_tpu_torch.distributed.scheduler_main", "--port", "0",
+         "--metrics-port", "-1"] + [a.format(etcd=fake_etcd) for a in args],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline and not all(
+                any(t in ln for ln in lines) for t in expected):
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+        lines.append(out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    text = "".join(lines)
+    for t in expected + ["draining (new submissions are shed)"]:
+        assert t in text, (proc.returncode, text)
+    assert proc.returncode == 0, text
 
 
 # ---------------------------------------------------------------------------

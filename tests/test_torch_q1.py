@@ -191,11 +191,18 @@ def test_settings_asking_for_unported_operators_raise(tpch):
     assert node.num_partitions == 4
 
 
-def test_explain_is_not_ported_and_names_its_queue():
+def test_explain_renders_the_plan_as_the_reference():
+    """EXPLAIN returns the JAX package's two rows, text for text."""
     ctx = BallistaContext.standalone(device="cpu")
+    ref_ctx = ReferenceContext.standalone()
     ctx.register_memtable("t", bt.schema(("k", "utf8")), {"k": ["a"]})
-    with pytest.raises(NotImplementedError_, match="queue 1 item 11"):
-        ctx.sql("explain select k from t").to_pydict()
+    ref_ctx.register_memtable("t", ref_pkg.schema(("k", "utf8")),
+                              {"k": ["a"]})
+    got = ctx.sql("explain select k from t").to_pydict()
+    want = ref_ctx.sql("explain select k from t").collect()
+    assert list(got["plan_type"]) == ["logical_plan", "physical_plan"]
+    assert list(got["plan_type"]) == list(want["plan_type"])
+    assert list(got["plan"]) == list(want["plan"])
 
 
 def test_produce_diagram_links_stages():

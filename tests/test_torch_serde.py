@@ -188,13 +188,35 @@ def test_reference_written_plan_runs_in_port(port, reference, q):
 
 @pytest.mark.parametrize("kind,item", [
     ("mesh_join", "item 10"), ("mesh_agg", "item 10"),
-    ("explain", "item 11"), ("explain_analyze", "item 11"),
 ])
 def test_later_items_raise_serde_error(kind, item):
     node = pb.PhysicalPlanNode()
     getattr(node, kind).SetInParent()
     with pytest.raises(SerdeError, match=item):
         serde.physical_from_proto(node, device="cpu")
+
+
+@pytest.mark.parametrize("analyze", [False, True],
+                         ids=["explain", "explain_analyze"])
+def test_explain_nodes_deserialize(port, reference, analyze):
+    """The EXPLAIN kinds: q1's plan serializes to the JAX package's
+    bytes and deserializes onto the device asked for, and the rebuilt
+    node runs."""
+    from ballista_tpu_torch.physical.explain import (ExplainAnalyzeExec,
+                                                     ExplainExec)
+
+    text = ("explain analyze " if analyze else "explain ") + sql("q1")
+    mine = serde.physical_to_proto(
+        plan_logical(port.sql(text).plan, port._planner_options()))
+    theirs = ref_serde.physical_to_proto(
+        reference_plan(reference.sql(text).plan))
+    assert mine.SerializeToString() == theirs.SerializeToString()
+    back = serde.physical_from_proto(mine, device="cpu")
+    assert isinstance(back, ExplainAnalyzeExec if analyze else ExplainExec)
+    assert back.device.type == "cpu"
+    out = collect_physical(back)
+    want = ("plan_with_metrics" if analyze else "physical_plan")
+    assert want in list(out["plan_type"])
 
 
 def test_system_source_raises_serde_error():

@@ -46,6 +46,26 @@ def pinned_threads(n: int = 2):
         ingest.reconfigure()
 
 
+@contextmanager
+def fresh_registries():
+    """A fresh process dictionary registry in each package while entered.
+    A shuffle file carries the registry stamp of the table entry that
+    first interned its dictionary's content in the process, and every
+    test file generates the same TPC-H content in a directory of its
+    own: a file that scanned it earlier with one package only would leave
+    that package's stamps naming its directory, and the other's not."""
+    from ballista_tpu import columnar_registry as ref_registry
+    from ballista_tpu_torch import columnar_registry
+
+    saved = columnar_registry.REGISTRY, ref_registry.REGISTRY
+    columnar_registry.REGISTRY = columnar_registry.DictionaryRegistry()
+    ref_registry.REGISTRY = ref_registry.DictionaryRegistry()
+    try:
+        yield
+    finally:
+        columnar_registry.REGISTRY, ref_registry.REGISTRY = saved
+
+
 def sql(q: str) -> str:
     return open(os.path.join(QDIR, f"{q}.sql")).read()
 
