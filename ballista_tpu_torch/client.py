@@ -609,6 +609,13 @@ class BallistaContext:
                 return _decode(cached, frame), phys
         for node in _plan_nodes(phys):  # report THIS run's metrics
             node.metrics().reset()
+        # optional prewarm (BALLISTA_PREWARM): start the scan-side
+        # programs' first calls at their predicted capacities BEFORE the
+        # scans below start parsing, so warm-up and capture overlap
+        # parse/upload (no-op unless enabled; compile/prewarm.py)
+        from .compile.prewarm import maybe_prewarm
+
+        maybe_prewarm(phys)
         # parallel ingest: start parse+H2D of every leaf scan now, so
         # independent tables overlap each other and the adaptive pass's
         # repartition materializations consume running streams. Scan

@@ -135,6 +135,16 @@ _STATS: Dict[str, Any] = {
     "first_call_seconds": 0.0,  # first calls: warm-up + capture, or eager
     "graph_replays": 0,      # CUDA graph replays
     "program_evictions": 0,  # per-entry programs dropped by the LRU bound
+    # the prewarm pass (compile/prewarm.py): its first calls (warm-up, and
+    # capture on a card where the program is kept), their seconds, and
+    # warm-ups that raised; none counts in programs_built, graph_captures
+    # or first_call_seconds
+    "prewarm_compiles": 0,
+    "prewarm_seconds": 0.0,
+    "prewarm_failures": 0,
+    # time first calls outside the prewarm pass waited for another
+    # thread's warm-up or capture (the one-at-a-time capture lock)
+    "capture_lock_wait_seconds": 0.0,
 }
 
 _tls = threading.local()
@@ -367,12 +377,14 @@ class _GraphProgram:
         with _CAPTURE_LOCK:
             return cls._capture(gf, args, leaves, device)
 
-    @classmethod
-    def _capture(cls, gf: "GovernedFunction", args: tuple,
-                 leaves: List[torch.Tensor], device: torch.device):
-        pool, side = _pool_and_side_stream(device)
+    @staticmethod
+    def warm_up(gf: "GovernedFunction", args: tuple, device: torch.device,
+                arena: dict):
+        """Run ``gf`` once eagerly on the card's side stream, uploading its
+        constants into ``arena``; returns its result. The caller holds
+        ``_CAPTURE_LOCK``."""
+        _pool, side = _pool_and_side_stream(device)
         cur = torch.cuda.current_stream(device)
-        arena: dict = {}
         # The side stream waits for everything queued so far; the current
         # stream waits for the warm-up. Blocks the warm-up allocates
         # belong to the side stream and are reused only by later
@@ -382,6 +394,14 @@ class _GraphProgram:
         with _CaptureScope(arena, None), torch.cuda.stream(side):
             out = gf.fn(*args)
         cur.wait_stream(side)
+        return out
+
+    @classmethod
+    def _capture(cls, gf: "GovernedFunction", args: tuple,
+                 leaves: List[torch.Tensor], device: torch.device):
+        pool, side = _pool_and_side_stream(device)
+        arena: dict = {}
+        out = cls.warm_up(gf, args, device, arena)
         spec = _flatten(args, [])
         static_in = [torch.empty(t.shape, dtype=t.dtype, device=device)
                      for t in leaves]
@@ -414,8 +434,6 @@ class _GraphProgram:
                 f"capturing {_render_key(gf.key)} as a CUDA graph failed: "
                 f"{type(e).__name__}: {e}") from e
         secs = _PERF() - t0
-        _STATS["graph_captures"] += 1
-        _STATS["capture_seconds"] += secs
         prog = cls()
         prog.graph, prog.static_in, prog.arena, prog.hooks = \
             graph, static_in, arena, hooks
@@ -522,21 +540,71 @@ class GovernedFunction:
         self.calls += 1
         sig, leaves = _signature(args)
         cuda = bool(leaves) and _captures(leaves[0].device)
+        prog = self._program(sig)
+        if prog is None:
+            if not (cuda and self.capture):
+                return self._first_call(metrics, args, sig, leaves, cuda,
+                                        donate)
+            # a first call on a card waits for any warm-up or capture in
+            # flight (one at a time), and replays the program when that
+            # was this signature's (the prewarm pass's, say)
+            t0 = _PERF()
+            with _CAPTURE_LOCK:
+                _STATS["capture_lock_wait_seconds"] += _PERF() - t0
+                prog = self._program(sig)
+                if prog is None:
+                    return self._first_call(metrics, args, sig, leaves,
+                                            cuda, donate)
+        if isinstance(prog, _GraphProgram):
+            return prog.replay(leaves, donate)
+        prog.calls += 1
+        if _cpu_capture_check is not None and self.capture and not cuda:
+            out = _cpu_capture_check(self, args, prog)
+        else:
+            out = self.fn(*args)
+        if donate is not None:
+            donate.donate()
+        return out
+
+    def warm(self, *args, keep: bool = True) -> bool:
+        """The prewarm pass's call (``compile/prewarm.py``): the first
+        call of ``args``' signature — eager on the CPU, warm-up and
+        capture on a card — with its result thrown away, so a real call
+        of the same signature replays. With ``keep=False`` (a signature
+        no real call can have) only the warm-up runs and no program is
+        kept. Counted in ``prewarm_compiles``, not in
+        ``first_call_seconds``. False when the signature was built
+        already; raises what the call raises."""
+        sig, leaves = _signature(args)
+        cuda = bool(leaves) and _captures(leaves[0].device)
+        with _CAPTURE_LOCK:
+            if self._program(sig) is not None:
+                return False
+            if keep:
+                self._first_call(None, args, sig, leaves, cuda, None,
+                                 prewarm=True)
+                return True
+            t0 = _PERF()
+            if cuda and self.capture:
+                _GraphProgram.warm_up(self, args, leaves[0].device, {})
+            else:
+                self.fn(*args)
+            _STATS["prewarm_compiles"] += 1
+            _STATS["prewarm_seconds"] += _PERF() - t0
+        return True
+
+    def _program(self, sig):
+        """The program built for ``sig``, or None."""
         with self._lock:
             prog = self.programs.get(sig)
             if prog is not None:
                 self.programs.move_to_end(sig)
-        if prog is not None:
-            if isinstance(prog, _GraphProgram):
-                return prog.replay(leaves, donate)
-            prog.calls += 1
-            if _cpu_capture_check is not None and self.capture and not cuda:
-                out = _cpu_capture_check(self, args, prog)
-            else:
-                out = self.fn(*args)
-            if donate is not None:
-                donate.donate()
-            return out
+        return prog
+
+    def _first_call(self, metrics, args, sig, leaves, cuda, donate,
+                    prewarm: bool = False):
+        """Build ``sig``'s program by running it (see the module doc);
+        returns the call's result."""
         t0 = _PERF()
         if cuda and self.capture:
             out, prog, capture_secs = _GraphProgram.capture(self, args,
@@ -558,6 +626,13 @@ class GovernedFunction:
             while bound > 0 and len(self.programs) > bound:
                 self.programs.popitem(last=False)
                 _STATS["program_evictions"] += 1
+        if prewarm:
+            _STATS["prewarm_compiles"] += 1
+            _STATS["prewarm_seconds"] += secs
+            return out
+        if isinstance(prog, _GraphProgram):
+            _STATS["graph_captures"] += 1
+            _STATS["capture_seconds"] += capture_secs
         _STATS["programs_built"] += 1
         _STATS["first_call_seconds"] += secs
         if metrics is not None:
@@ -589,6 +664,9 @@ class _BoundGoverned:
 
     def call_donating(self, batch, *extra):
         return self.gf.call_with(self.metrics, batch, *extra, donate=batch)
+
+    def warm(self, *args, keep: bool = True) -> bool:
+        return self.gf.warm(*args, keep=keep)
 
 
 def _render_key(key: tuple) -> str:
@@ -673,7 +751,7 @@ class CompileGovernor:
         """Per-entry rows of ``system.compile``, in the JAX package's
         columns: a "compile" here is a program built (a warm-up, and a
         capture on a card); the port has no persistent cache and no
-        AOT artifacts, so those columns are 0."""
+        AOT artifacts (``aot.py``), so those columns are 0."""
         with self._lock:
             snap = [(ns, gf) for ns, space in self._spaces.items()
                     for gf in space.values()]
@@ -713,6 +791,8 @@ def compile_stats() -> Dict[str, Any]:
     """Snapshot of process-wide accounting."""
     out = dict(_STATS)
     out["entries"] = _GOVERNOR.entries()
+    # the JAX package's AOT artifacts: the port has none (compile/aot.py)
+    out["aot_loads"] = out["aot_exports"] = 0
     return out
 
 

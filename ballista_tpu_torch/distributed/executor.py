@@ -835,7 +835,8 @@ def write_shuffled(plan, pid: PartitionId, work_dir: str, hash_exprs,
 class LocalCluster:
     """In-process scheduler + N executors (for tests and single-host use).
     Every executor runs its tasks on ``device`` ("cuda" by default; it
-    raises before anything starts when there is no card)."""
+    raises before anything starts when there is no card), and the
+    scheduler its server-planned scalar subqueries."""
 
     def __init__(self, num_executors: int = 2, concurrent_tasks: int = 2,
                  scheduler_port: int = 0, num_devices: int = 1,
@@ -858,7 +859,7 @@ class LocalCluster:
         self.server, self.service, self.port = serve_scheduler(
             self.state, "localhost", scheduler_port,
             speculation_age_secs=speculation_age_secs,
-            metrics_port=metrics_port,
+            metrics_port=metrics_port, device=device,
         )
         # remember the executor shape: the autoscaler's add_executor
         # hook spawns clones of the launch-time fleet

@@ -86,8 +86,10 @@ def main(argv=None) -> int:
         from .state import MemoryBackend, SchedulerState
 
         state = SchedulerState(MemoryBackend(), cfg["namespace"])
+        # the embedded scheduler runs server-planned scalar subqueries
+        # on the executor's device, as LocalCluster's does
         _server, _svc, scheduler_port = serve_scheduler(
-            state, "localhost", 0
+            state, "localhost", 0, device=device
         )
         print(f"embedded scheduler on localhost:{scheduler_port}", flush=True)
 

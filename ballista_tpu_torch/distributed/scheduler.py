@@ -1,15 +1,18 @@
 """Scheduler: control-plane gRPC service + planning pipeline.
 
 The port of the JAX package's ``distributed/scheduler.py``. The
-scheduler plans, cuts and re-serializes plans but never runs one, so
-everything it deserializes lives on the CPU (``device="cpu"``): it
-creates no CUDA context. The mesh fast path (``physical.mesh_agg``) is
-not ported (ROADMAP queue 1 item 10): a fleet reporting more than one
-device per executor is refused, not planned unfused. For the same
-reason a plan that still holds a scalar subquery (a server-planned
-query, ``plan.server``) is refused: the JAX scheduler runs such a
-subquery on its default device, which here would be the scheduler's
-CPU (ROADMAP queue 1 item 9c).
+scheduler plans, cuts and re-serializes plans, so everything it
+deserializes for that lives on the CPU (``device="cpu"``). It runs one
+kind of query itself, as the JAX scheduler does: the uncorrelated scalar
+subqueries of a plan it received with one still in it (a server-planned
+query, ``plan.server``). Those run on the scheduler's ``device``
+(``"cuda"`` by default, the JAX scheduler's default device), their scans
+reading the catalog's sources opened there, before the plan is cut into
+stages; a plan without one never touches the device, so such a
+scheduler creates no CUDA context. The mesh fast path
+(``physical.mesh_agg``) is not ported (ROADMAP queue 1 item 10): a fleet
+reporting more than one device per executor is refused, not planned
+unfused.
 
 Re-implements the reference scheduler (reference: rust/scheduler/src/
 lib.rs — the 5 SchedulerGrpc RPCs; execute_query background planning at
@@ -36,7 +39,10 @@ from typing import Dict, Optional
 import grpc
 
 from ..errors import ClusterError, NotImplementedError_
-from ..execution import map_scalar_subqueries, plan_logical
+from ..execution import (map_scalar_subqueries, plan_logical,
+                         resolve_scalar_subqueries)
+from ..lifecycle import CancelToken, bind_token
+from ..logical import TableScan
 from ..observability import trace_span
 from ..proto import ballista_pb2 as pb
 from ..testing.faults import fault_point
@@ -94,14 +100,23 @@ def _fuse_mesh_stages(stages, n_mesh: int):
         "not ported yet (ROADMAP queue 1 item 10)")
 
 
-def _refuse_subquery(_subquery):
-    """The scheduler runs no query (module doc): a scalar subquery left
-    in a plan is refused, not run on its CPU."""
-    raise NotImplementedError_(
-        "a scalar subquery in a server-planned query would run on the "
-        "scheduler's CPU: plan it client-side (settings['plan.server']="
-        "'off'); running it on an executor is not ported yet (ROADMAP "
-        "queue 1 item 9c)")
+def _scans_on(plan, device) -> None:
+    """Re-open, in place, every table scan of ``plan`` and of the scalar
+    subqueries inside it on ``device``: the same source description
+    (files, schema, format) through serde, so the scans read what the
+    catalog names."""
+    if isinstance(plan, TableScan):
+        plan.source = serde.source_from_proto(
+            serde.source_to_proto(plan.source), device=device)
+
+    def nested(sq):
+        if sq.plan is not None:
+            _scans_on(sq.plan, device)
+        return sq
+
+    map_scalar_subqueries(plan, nested)
+    for child in plan.children():
+        _scans_on(child, device)
 
 
 def _cluster_mesh_devices(state: SchedulerState, settings,
@@ -168,8 +183,17 @@ def _job_id() -> str:
 class SchedulerService:
     def __init__(self, state: SchedulerState,
                  speculation_age_secs: float = 60.0,
-                 metrics_port: "int | None" = None):
+                 metrics_port: "int | None" = None, device="cuda"):
         self.state = state
+        # where server-planned scalar subqueries run (module doc); read
+        # only when one arrives
+        self.device = device
+        # job id -> the cancel token bound while its subqueries run:
+        # the job's terminal hook fires it, so a cancelled job's
+        # subquery stops at its next batch boundary and commits nothing
+        # to the table cache
+        self._subquery_tokens: Dict[str, CancelToken] = {}
+        self._subquery_lock = threading.Lock()
         # duplicate straggler tasks older than this when executors idle;
         # 0 disables
         self.speculation_age_secs = speculation_age_secs
@@ -497,6 +521,13 @@ class SchedulerService:
         from ..observability.health import slow_query_secs
         from ..observability.registry import observe_histogram
 
+        with self._subquery_lock:
+            token = self._subquery_tokens.get(job_id)
+        if token is not None:
+            # a subquery still running for this job stops at its next
+            # batch boundary (_resolve_subqueries)
+            token.cancel(getattr(status, "cancel_reason", None)
+                         or status.state)
         self.profiles.finalize(job_id, summary)
         # latency ledger: scheduler stamps + the summed per-task
         # ``ledger.*`` deltas that rode CompletedTask profiles — cheap
@@ -850,6 +881,38 @@ class SchedulerService:
                 self.state.save_job_status(
                     job_id, JobStatus("failed", error=str(e)))
 
+    def _resolve_subqueries(self, job_id: str, logical_plan, opts):
+        """Run ``logical_plan``'s uncorrelated scalar subqueries on the
+        scheduler's device with the job's planner options ``opts``, and
+        inline their values, as the JAX scheduler's ``plan_logical`` does
+        on its default device. The job's cancel fires the token bound
+        meanwhile."""
+        import dataclasses
+
+        from ..client import _resolve_device
+
+        found = []
+        map_scalar_subqueries(logical_plan,
+                              lambda sq: found.append(sq) or sq)
+        if not found:
+            return logical_plan
+        device = _resolve_device(self.device)
+        for sq in found:
+            if sq.plan is not None:
+                _scans_on(sq.plan, device)
+        token = CancelToken(job_id)
+        with self._subquery_lock:
+            self._subquery_tokens[job_id] = token
+        if self.state.is_job_cancelled(job_id):
+            token.cancel("client")  # cancelled before the bind
+        try:
+            with bind_token(token):
+                return resolve_scalar_subqueries(
+                    logical_plan, dataclasses.replace(opts, device=device))
+        finally:
+            with self._subquery_lock:
+                self._subquery_tokens.pop(job_id, None)
+
     def _plan_job_inner(self, job_id: str, logical_plan, settings=None,
                         sql=None, catalog_entries=None):
         from ..physical.planner import PlannerOptions
@@ -860,7 +923,6 @@ class SchedulerService:
         self.state.save_job_settings(job_id, settings or {})
         if logical_plan is None:
             logical_plan = self._plan_sql(sql, catalog_entries or [])
-        map_scalar_subqueries(logical_plan, _refuse_subquery)
         digest = None
         try:
             # plan digest: identifies the query in slow-query summaries
@@ -884,6 +946,10 @@ class SchedulerService:
                          "; ".join(cost_notes))
         except Exception:  # noqa: BLE001 - advisory
             log.exception("cost advise failed for job %s", job_id)
+        # where the JAX scheduler's plan_logical resolves them: after the
+        # digest (which names the query as submitted), on the device
+        logical_plan = self._resolve_subqueries(job_id, logical_plan,
+                                                opts)
         phys = plan_logical(logical_plan, opts)
         stages = DistributedPlanner().plan_query_stages(job_id, phys)
         stages = _fuse_mesh_stages(
@@ -1383,12 +1449,13 @@ _RPCS = {
 def serve_scheduler(state: SchedulerState, host: str = "0.0.0.0",
                     port: int = 50050, max_workers: int = 16,
                     speculation_age_secs: float = 60.0,
-                    metrics_port: "int | None" = None):
+                    metrics_port: "int | None" = None, device="cuda"):
     """Start the scheduler gRPC server; returns (grpc_server, service).
     ``metrics_port`` starts the health plane (None = resolve
-    ``BALLISTA_METRICS_PORT``, default off; 0 = ephemeral)."""
+    ``BALLISTA_METRICS_PORT``, default off; 0 = ephemeral). ``device``:
+    where server-planned scalar subqueries run."""
     svc = SchedulerService(state, speculation_age_secs=speculation_age_secs,
-                           metrics_port=metrics_port)
+                           metrics_port=metrics_port, device=device)
     handlers = {}
     for name, (req_t, _resp_t) in _RPCS.items():
         handlers[name] = grpc.unary_unary_rpc_method_handler(

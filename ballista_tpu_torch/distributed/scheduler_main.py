@@ -4,14 +4,16 @@
 — layered config: defaults < /etc/ballista-tpu/scheduler.toml <
 --config-file < env BALLISTA_SCHEDULER_* < CLI flags.)
 
-The port of the JAX package's binary. The scheduler runs no task, so it
-needs no device and creates no CUDA context. State lives in memory, in
-sqlite or in etcd (``--state etcd:host:port`` or ``--etcd-urls``).
-``--flight-port`` serves Arrow Flight (``flight.py``): a ``DoGet``
-whose ticket is raw SQL runs through a loopback remote context on the
-CPU, whose queries run on the executors' devices; a query holding a
-scalar subquery, which that context would run on the scheduler's CPU,
-is refused (ROADMAP queue 1 item 9c).
+The port of the JAX package's binary. The scheduler runs no task; the
+one query work it does itself is a server-planned query's scalar
+subqueries, which run on ``--device`` (``cuda`` by default, the JAX
+binary's default device; a scheduler that receives none creates no CUDA
+context). State lives in memory, in sqlite or in etcd (``--state
+etcd:host:port`` or ``--etcd-urls``). ``--flight-port`` serves Arrow
+Flight (``flight.py``): a ``DoGet`` whose ticket is raw SQL runs through
+a loopback remote context on ``--device``, which resolves the query's
+scalar subqueries there, as the JAX binary's loopback context does on
+its default device; the rest runs on the executors' devices.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ import logging
 import signal
 import sys
 
-from ..errors import NotImplementedError_
 from .config import layered_config
 
 DEFAULTS = {
@@ -42,6 +43,9 @@ DEFAULTS = {
     # executor_main subprocesses against this scheduler; bounds and
     # thresholds ride the autoscale.* knob family (BALLISTA_AUTOSCALE_*)
     "autoscale": "off",
+    # where server-planned scalar subqueries and the Flight loopback
+    # context's run: cuda | cpu
+    "device": "cuda",
 }
 
 
@@ -117,7 +121,7 @@ def main(argv=None) -> int:
     server, _svc, port = serve_scheduler(
         state, cfg["bind_host"], cfg["port"],
         speculation_age_secs=float(cfg["speculation_secs"]),
-        metrics_port=int(cfg["metrics_port"]),
+        metrics_port=int(cfg["metrics_port"]), device=cfg["device"],
     )
     print(f"ballista-tpu scheduler listening on {cfg['bind_host']}:{port} "
           f"(backend={cfg['config_backend']}, ns={cfg['namespace']})",
@@ -189,21 +193,14 @@ def main(argv=None) -> int:
     return 0
 
 
-def _refuse_subquery(_subquery):
-    raise NotImplementedError_(
-        "a scalar subquery sent over Arrow Flight would run on the "
-        "scheduler's CPU: running it on an executor is not ported yet "
-        "(ROADMAP queue 1 item 9c)")
-
-
 def _serve_flight(cfg, port: int, ap):
     """Arrow Flight front-end: foreign clients (the reference's JDBC
     driver shape — jdbc:arrow://host:flight_port) send raw SQL as a
     DoGet ticket; the query runs through the NORMAL cluster path
     (submit -> schedule -> executors -> fetch) via a loopback client
-    context on the CPU, so this process never touches a card."""
+    context on the scheduler's device, where its scalar subqueries
+    run."""
     from ..client import BallistaContext
-    from ..execution import map_scalar_subqueries
     from .flight import available as flight_available, serve_flight
 
     if not flight_available():
@@ -214,7 +211,8 @@ def _serve_flight(cfg, port: int, ap):
                  if cfg["bind_host"] in ("0.0.0.0", "::", "localhost",
                                          "127.0.0.1")
                  else cfg["bind_host"])
-    fctx = BallistaContext.remote(loop_host, port, device="cpu")
+    fctx = BallistaContext.remote(loop_host, port,
+                                  device=cfg["device"])
 
     def execute_sql(sql):
         df = fctx.sql(sql)
@@ -222,8 +220,6 @@ def _serve_flight(cfg, port: int, ap):
             import numpy as np  # EXTERNAL TABLE registered above
 
             return {"status": np.asarray(["OK"], dtype=object)}
-        # the walk raises at the first subquery, before it replaces one
-        map_scalar_subqueries(df.plan, _refuse_subquery)
         return df.collect()
 
     flight_server, fport = serve_flight(

@@ -218,6 +218,9 @@ class DelimitedSource(TableSource):
                     streamed = size > STREAM_CHUNK_BYTES
                     for off in (range(0, size, STREAM_CHUNK_BYTES)
                                 if streamed else [0]):
+                        # a cancelled collect stops the pre-pass at a
+                        # range boundary (nothing is kept half-built)
+                        check_cancel()
                         _, _, fd, _ = native.scan_file(
                             f, self._schema, need, self._delim,
                             self._header, offset=off,

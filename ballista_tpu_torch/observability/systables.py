@@ -73,10 +73,13 @@ KNOBS: Dict[str, tuple] = {
     "BALLISTA_SHAPE_BUCKETS_GROWTH": ("2", "geometric ladder step"),
     "BALLISTA_FUSION": ("on", "whole-stage fusion: one governed XLA "
                               "program per pipeline stage"),
-    "BALLISTA_FUSION_AOT_DIR": ("off", "serialize fused-stage programs "
-                                       "(jax.export) into this directory"),
-    "BALLISTA_PREWARM": ("off", "AOT-compile fused stages concurrently "
-                                "with parse/H2D"),
+    "BALLISTA_FUSION_AOT_DIR": ("off", "read, but the port writes and "
+                                       "loads nothing there (a CUDA "
+                                       "graph does not outlive its "
+                                       "process)"),
+    "BALLISTA_PREWARM": ("off", "warm-up and capture fused stages "
+                                "concurrently with parse/H2D (a stage "
+                                "over utf8 columns: warm-up only)"),
     "BALLISTA_XLA_CACHE": ("~/.cache/ballista-tpu-xla-<cpu-tag>",
                            "persistent XLA compilation cache dir "
                            "(empty = disabled)"),

@@ -620,7 +620,9 @@ class HashAggregateExec(PhysicalPlan):
 
     # ungrouped -------------------------------------------------------------
 
-    def _exec_scalar(self, batch: ColumnBatch) -> ColumnBatch:
+    def _scalar_fn(self):
+        """The ``agg.scalar`` program (also the prewarm pass's target)."""
+
         def build():
             tw = self.trace_twin()
 
@@ -634,10 +636,12 @@ class HashAggregateExec(PhysicalPlan):
 
             return run
 
+        return self.governed_jit(("agg.scalar",), build)
+
+    def _exec_scalar(self, batch: ColumnBatch) -> ColumnBatch:
         # single call, batch never read again: donate when transient
         dev = batch.device
-        vals, valids = donating_call(
-            self.governed_jit(("agg.scalar",), build), batch)
+        vals, valids = donating_call(self._scalar_fn(), batch)
 
         cap = 8
 

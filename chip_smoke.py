@@ -163,27 +163,51 @@ non-zero exit):
    each (>= 2) and every observed call bit-equal to the plain version;
    (c) ``EXPLAIN ANALYZE`` q1 through a ``LocalCluster(2, 2)`` on the
    card runs as one task whose operators and rows equal the standalone
-   ANALYZE's, launches counted; (d) ``scheduler_main --flight-port 0``
-   in a process of its own with two executors of this process on the
-   card: a ``pyarrow.flight`` client registers the tables with DDL
-   tickets, q1 (launches counted) and ``EXPLAIN`` q1 equal the
-   standalone results, q11 is refused as a ``FlightServerError`` naming
-   ROADMAP item 9c, and SIGTERM drains the scheduler (exit 0); (e) a
+   ANALYZE's, launches counted; (d) ``scheduler_main --flight-port 0
+   --device cuda`` in a process of its own with two executors of this
+   process on the card: a ``pyarrow.flight`` client registers the tables
+   with DDL tickets, q1 (launches counted) and ``EXPLAIN`` q1 equal the
+   standalone results, and SIGTERM drains the scheduler (exit 0); (e) a
    cold q5 with ``on_progress`` sampling every 10 ms equals the cold q5
    without it and captures as many graphs, its last snapshot at
    fraction 1.0; (f) warm q1 timed in turns (7 rounds, medians) with
    the ledger and the query history on, with both off, and without the
    recorder;
-16. in a process of its own, a governed program that cannot be captured
+16. scalar subqueries, prewarm and AOT: (a) q11, q15 and q22 at SF1
+   server-planned (``plan.server=on``) through a ``LocalCluster(2, 2)`` on
+   the card, whose scheduler runs each query's scalar subquery on the
+   card: results equal the standalone collect on the card and the port
+   on the CPU, the literal each subquery becomes on the scheduler, on
+   the standalone card and on the CPU is logged and must agree (decimal,
+   date and integer exactly, float within rtol 1e-6), the kernel's
+   launches counted per query and inside its subquery, every observed
+   call bit-equal to the plain version; (b) the same three at SF0.05
+   over ``scheduler_main --flight-port 0 --device cuda`` (the loopback
+   context resolves the subqueries on the card), equal to phase 12's
+   standalone results, the kernel calls of their tasks (in this
+   process's executors) bit-equal to the plain version; (c) in fresh processes (``--prewarm-child``),
+   three with ``BALLISTA_PREWARM=1`` and three without in turns, then
+   one without it under ``CUDA_MODULE_LOADING=EAGER``, the process's
+   first q1 and first q6 at SF1: wall, the ledger's phases and lanes, the prewarm
+   pass's programs, seconds and failures (must be 0), the real call's
+   captures, the foreground's wait on the capture lock, the kernel's
+   launches (the prewarm warm-up's included), each of its calls bit-equal
+   to the plain version, and the card memory the process holds after the
+   collect; every result equal to the first run's, q1 also to the port on the CPU; (d) q1 with
+   ``BALLISTA_FUSION_AOT_DIR`` naming an empty directory: it stays
+   empty, ``aot_loads`` and ``aot_exports`` 0, the result equal;
+17. in a process of its own, a governed program that cannot be captured
    (it reads a device value on the host) must raise ``CaptureError``
    rather than run eagerly;
-17. the kernel list, as one JSON line; its times, replicas and VEC are
+18. the kernel list, as one JSON line; its times, replicas and VEC are
     those on q1's main-path inputs, with q5's launches and times beside
     them, and the launches of q5 through the adapted join, of q1 over
     the streamed lineitem, of q1 and q5 from Parquet, of q1 and q5
     through the cluster's executor tasks (their first runs), of
     ``EXPLAIN ANALYZE`` q1 and q5 standalone and q1 through the cluster,
-    and of q1 sent over Arrow Flight.
+    of q1 sent over Arrow Flight, of the first q1 with the prewarm pass
+    on and off (per fresh process), and inside each server-planned
+    subquery.
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -195,6 +219,7 @@ time the card was busy, and the operators' metrics).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -2792,13 +2817,13 @@ def phase_cluster_explain(data_dir: str, standalone_q1: str,
     return {"wall_s": secs, "launches": n_launch}
 
 
-def phase_flight(data_dir: str, want_q1: dict, explain_q1: dict,
-                 launches: dict) -> dict:
-    """``scheduler_main --flight-port 0`` in a process of its own (it
-    plans on the CPU), two executors of this process on the card, and a
-    stock ``pyarrow.flight`` client: DDL tickets register the tables, q1
-    and EXPLAIN q1 equal the standalone results, q11 is refused as a
-    ``FlightServerError`` naming ROADMAP item 9c; SIGTERM drains it."""
+@contextlib.contextmanager
+def flight_scheduler(data_dir: str, tables):
+    """``scheduler_main --flight-port 0 --device cuda`` in a process of its
+    own, two executors of this process on the card, and a stock
+    ``pyarrow.flight`` client with ``tables`` of ``data_dir`` registered
+    by DDL tickets; yields the client. On the way out the executors stop
+    and SIGTERM must drain the scheduler (exit 0)."""
     import re
     import signal
     import tempfile
@@ -2807,13 +2832,12 @@ def phase_flight(data_dir: str, want_q1: dict, explain_q1: dict,
 
     from ballista_tpu_torch.distributed.executor import (Executor,
                                                          ExecutorConfig)
-    from ballista_tpu_torch.kernels import dense_sums as ds
     from ballista_tpu_torch.testing.tpch_schema import tpch_ddl
 
     proc = subprocess.Popen(
         [sys.executable, "-m", "ballista_tpu_torch.distributed.scheduler_main",
          "--port", "0", "--flight-port", "0", "--metrics-port", "-1",
-         "--bind-host", "127.0.0.1"],
+         "--bind-host", "127.0.0.1", "--device", "cuda"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines, executors, work = [], [], tempfile.mkdtemp(prefix="flight-")
     try:
@@ -2839,37 +2863,10 @@ def phase_flight(data_dir: str, want_q1: dict, explain_q1: dict,
             ex.start()
             executors.append(ex)
         client = paflight.connect(f"grpc://127.0.0.1:{fport}")
-        for table in ("lineitem", "nation", "supplier", "partsupp"):
+        for table in tables:
             client.do_get(paflight.Ticket(
                 tpch_ddl(table, data_dir).encode())).read_all()
-        sql = open(os.path.join(QUERY_DIR, "q1.sql")).read()
-        with KernelCallLog() as spy:
-            torch.cuda.synchronize()
-            ds.launch_count = 0
-            t0 = time.perf_counter()
-            table = client.do_get(paflight.Ticket(sql.encode())).read_all()
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            n_launch = ds.launch_count
-        check_observed(spy.calls, "Flight q1")
-        got = {c: np.asarray(table[c].to_numpy(zero_copy_only=False))
-               for c in table.column_names}
-        assert_close_results("Flight q1 vs standalone", got, want_q1)
-        if n_launch < 2:
-            raise AssertionError(f"Flight q1: {n_launch} kernel launches")
-        plan = client.do_get(paflight.Ticket(
-            ("EXPLAIN " + sql).encode())).read_all().to_pydict()
-        if dict(zip(plan["plan_type"], plan["plan"])) != explain_q1:
-            raise AssertionError("Flight EXPLAIN q1 differs from standalone")
-        q11 = open(os.path.join(QUERY_DIR, "q11.sql")).read()
-        try:
-            client.do_get(paflight.Ticket(q11.encode())).read_all()
-        except paflight.FlightServerError as e:
-            if "item 9c" not in str(e):
-                raise
-            refusal = str(e).splitlines()[0][:160]
-        else:
-            raise AssertionError("Flight q11 was not refused")
+        yield client
         client.close()
         while executors:  # before the scheduler, which they poll
             executors.pop().stop()
@@ -2886,10 +2883,47 @@ def phase_flight(data_dir: str, want_q1: dict, explain_q1: dict,
     if proc.returncode != 0 or "draining" not in text:
         raise AssertionError(f"scheduler_main did not drain on SIGTERM "
                              f"(exit {proc.returncode}):\n{text[-3000:]}")
+
+
+def flight_result(client, sql: str) -> dict:
+    import pyarrow.flight as paflight
+
+    table = client.do_get(paflight.Ticket(sql.encode())).read_all()
+    return {c: np.asarray(table[c].to_numpy(zero_copy_only=False))
+            for c in table.column_names}
+
+
+def phase_flight(data_dir: str, want_q1: dict, explain_q1: dict,
+                 launches: dict) -> dict:
+    """``flight_scheduler`` at SF1: q1 and EXPLAIN q1 equal the standalone
+    results, q1's kernel launches counted; SIGTERM drains the scheduler.
+    (Phase 16 sends it the scalar subqueries.)"""
+    import pyarrow.flight as paflight
+
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    sql = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+    with flight_scheduler(data_dir, ("lineitem",)) as client:
+        with KernelCallLog() as spy:
+            torch.cuda.synchronize()
+            ds.launch_count = 0
+            t0 = time.perf_counter()
+            got = flight_result(client, sql)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            n_launch = ds.launch_count
+        check_observed(spy.calls, "Flight q1")
+        assert_close_results("Flight q1 vs standalone", got, want_q1)
+        if n_launch < 2:
+            raise AssertionError(f"Flight q1: {n_launch} kernel launches")
+        plan = client.do_get(paflight.Ticket(
+            ("EXPLAIN " + sql).encode())).read_all().to_pydict()
+        if dict(zip(plan["plan_type"], plan["plan"])) != explain_q1:
+            raise AssertionError("Flight EXPLAIN q1 differs from standalone")
     launches["flight_q1"] = n_launch
     log(f"# Flight: q1 in {secs:.4f} s == standalone, kernel launches "
-        f"{n_launch}; EXPLAIN q1 == standalone; q11 refused ({refusal}); "
-        f"scheduler drained on SIGTERM")
+        f"{n_launch}; EXPLAIN q1 == standalone; scheduler drained on "
+        f"SIGTERM")
     return {"q1_s": secs, "launches": n_launch}
 
 
@@ -3050,6 +3084,300 @@ def phase_observability(card: str, data_dir: str, want_q1: dict) -> tuple:
     return row, launches
 
 
+# -- phase 16 ---------------------------------------------------------------
+
+SUBQUERY_QUERIES = ("q11", "q15", "q22")  # one scalar subquery each
+SUBQUERY_TABLES = ("lineitem", "nation", "supplier", "partsupp",
+                   "customer", "orders")
+
+
+def assert_same_literal(label: str, got: dict, want: dict) -> None:
+    """Decimal, date and integer results exactly; float results within
+    rtol 1e-6."""
+    (v, kind), = got["literals"]
+    (w, wkind), = want["literals"]
+    if kind != wkind or got["kinds"] != want["kinds"]:
+        raise AssertionError(f"{label}: {got} vs {want}")
+    if v is None or w is None:  # an empty or NULL scalar result
+        ok = v is None and w is None
+    elif got["kinds"][0] in ("float32", "float64"):
+        ok = abs(v - w) <= 1e-6 * abs(w)
+    else:
+        ok = v == w
+    if not ok:
+        raise AssertionError(f"{label}: literal {v!r} != {w!r}")
+
+
+def phase_server_subqueries(data_dir: str, launches: dict) -> dict:
+    """(a) q11, q15 and q22 at SF1 server-planned (``plan.server=on``)
+    through ``LocalCluster(device="cuda")``: the scheduler runs each
+    scalar subquery on the card. Results equal the standalone collect on
+    the card and the port on the CPU; each subquery's literal is logged
+    on the card (scheduler and standalone) and the CPU and must agree;
+    the kernel's launches counted per query and inside its subquery."""
+    from ballista_tpu_torch import execution
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.distributed import scheduler
+    from ballista_tpu_torch.distributed.executor import LocalCluster
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.testing.subqueries import SubqueryRecorder
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    gpu = BallistaContext.standalone()
+    cpu = BallistaContext.standalone(device="cpu")
+    register_tpch(gpu, data_dir, tables=list(SUBQUERY_TABLES))
+    register_tpch(cpu, data_dir, tables=list(SUBQUERY_TABLES))
+    rows = {}
+    cluster = LocalCluster(num_executors=2, concurrent_tasks=2,
+                           device="cuda")
+    try:
+        ctx = BallistaContext.remote("localhost", cluster.port,
+                                     **{"plan.server": "on"})
+        register_tpch(ctx, data_dir, tables=list(SUBQUERY_TABLES))
+        for q in SUBQUERY_QUERIES:
+            sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            with SubqueryRecorder(execution) as card_std:
+                want_card = gpu.sql(sql).to_pydict()
+            with SubqueryRecorder(execution) as cpu_std:
+                want_cpu = cpu.sql(sql).to_pydict()
+            with SubqueryRecorder(scheduler) as server, KernelCallLog() as spy:
+                torch.cuda.synchronize()
+                ds.launch_count = 0
+                t0 = time.perf_counter()
+                got = ctx.sql(sql).to_pydict()
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                n_launch = ds.launch_count
+            check_observed(spy.calls, f"server-planned {q}")
+            assert_close_results(f"server-planned {q} vs standalone card",
+                                 got, want_card)
+            assert_close_results(f"server-planned {q} vs cpu", got,
+                                 want_cpu)
+            srv = server.only(f"{q} scheduler")
+            std = card_std.only(f"{q} standalone card")
+            ref = cpu_std.only(f"{q} cpu")
+            assert_same_literal(f"{q} scheduler vs cpu", srv, ref)
+            assert_same_literal(f"{q} standalone card vs cpu", std, ref)
+            rows[q] = {"s": secs, "launches": n_launch,
+                       "subquery_launches": srv["launches"],
+                       "kind": srv["kinds"][0],
+                       "literal_card": repr(srv["literals"][0][0]),
+                       "literal_standalone_card": repr(std["literals"][0][0]),
+                       "literal_cpu": repr(ref["literals"][0][0])}
+            log(f"# server-planned {q} (sf{SCALE:g}): == standalone card "
+                f"== cpu, {secs:.4f} s, kernel launches {n_launch} "
+                f"({srv['launches']} in the subquery on the scheduler); "
+                f"subquery ({srv['kinds'][0]}) literal: scheduler "
+                f"{rows[q]['literal_card']}, standalone card "
+                f"{rows[q]['literal_standalone_card']}, cpu "
+                f"{rows[q]['literal_cpu']}")
+    finally:
+        cluster.shutdown()
+    launches["server_subquery"] = {q: r["subquery_launches"]
+                                   for q, r in rows.items()}
+    return rows
+
+
+def phase_flight_subqueries(small_dir: str, small_want: dict) -> dict:
+    """(b) q11, q15 and q22 at SF0.05 over ``flight_scheduler``: the
+    scheduler's loopback context resolves each subquery on its
+    ``--device cuda``; each result equals phase 12's standalone collect
+    on the card."""
+    rows = {}
+    with flight_scheduler(small_dir, SUBQUERY_TABLES) as client:
+        for q in SUBQUERY_QUERIES:
+            sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            with KernelCallLog() as spy:
+                t0 = time.perf_counter()
+                got = flight_result(client, sql)
+                rows[q] = time.perf_counter() - t0
+            # the tasks run in this process's executors
+            check_observed(spy.calls, f"Flight {q}")
+            assert_close_results(f"Flight {q} vs standalone card", got,
+                                 small_want[q])
+    log(f"# Flight subqueries (sf{SMALL_SCALE:g}, --device cuda): "
+        f"{', '.join(f'{q} {s:.4f} s' for q, s in rows.items())}, each == "
+        f"standalone card; scheduler drained on SIGTERM")
+    return rows
+
+
+def prewarm_child(data_dir: str) -> int:
+    """Run in a fresh process (``--prewarm-child``): the process's first
+    q1, then its first q6, at SF1, with ``BALLISTA_PREWARM`` as the
+    parent set it. Prints one ``PREWARM_CHILD`` JSON line: per query the
+    wall, the ledger's compile phase, the prewarm pass's programs and
+    failures, the real call's captures, the foreground's wait on the
+    capture lock, the kernel's launches (the prewarm warm-up's included)
+    and the result. Every kernel call of the collect, the warm-up's
+    included, is held against the plain version after it."""
+    import threading as _threading
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import compile_stats, prewarm_enabled
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    ctx = BallistaContext.standalone()
+    register_tpch(ctx, data_dir, tables=["lineitem"])
+    out = {"prewarm": prewarm_enabled()}
+    for q in ("q1", "q6"):
+        sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+        st0 = compile_stats()
+        with KernelCallLog() as spy:
+            torch.cuda.synchronize()
+            ds.launch_count = 0
+            t0 = time.perf_counter()
+            res = ctx.sql(sql).to_pydict()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            for t in _threading.enumerate():
+                if t.name == "ballista-prewarm":
+                    t.join()
+        st1 = compile_stats()
+        check_observed(spy.calls, f"prewarm child first {q}")
+        observed = len(spy.calls)
+        del spy  # its copies of the kernel's inputs
+        led = ctx.last_query_ledger()
+        lanes = ctx.sql("select job_id, lane, seconds from "
+                        "system.query_lanes").to_pydict()
+        out[q] = {
+            "wall_s": led["wall_seconds"], "host_wall_s": wall,
+            "lanes": {ln: sec for j, ln, sec in zip(
+                lanes["job_id"], lanes["lane"], lanes["seconds"])
+                if j == led["job_id"]},
+            "compile_s": led["phases"]["compile"],
+            "phases": led["phases"],
+            "launches": ds.launch_count,
+            "observed_calls": observed,
+            # what the process holds on the card after the collect (and
+            # the prewarm pass): kept programs' buffers, cached tables
+            "allocated_mb": torch.cuda.memory_allocated() / 2**20,
+            "result": {k: np.asarray(v).tolist() for k, v in res.items()},
+        }
+        for k in ("prewarm_compiles", "prewarm_seconds", "prewarm_failures",
+                  "graph_captures", "capture_lock_wait_seconds"):
+            out[q][k] = st1[k] - st0[k]
+    print("PREWARM_CHILD " + json.dumps(out), flush=True)
+    return 0
+
+
+def phase_prewarm(data_dir: str, want_q1: dict, launches: dict,
+                  rounds: int = 3) -> dict:
+    """(c) ``prewarm_child`` in fresh processes: with
+    ``BALLISTA_PREWARM=1`` and without it in turns (``rounds`` each), then
+    once without it under ``CUDA_MODULE_LOADING=EAGER`` (every kernel
+    loaded when the context comes up: what is left of a first call is not
+    lazy module loading; once, to keep the script near 600 s). No warm-up
+    may fail, every kernel call of a child is bit-equal to the plain
+    version (checked in the child), and every run's q1 and q6 equal the
+    first run's (q1 also the port on the CPU)."""
+    runs = {"on": [], "off": [], "eager_loading": []}
+    for mode in ["on", "off"] * rounds + ["eager_loading"]:
+        env = dict(os.environ)
+        env.pop("BALLISTA_PREWARM", None)
+        if mode == "on":
+            env["BALLISTA_PREWARM"] = "1"
+        if mode == "eager_loading":
+            env["CUDA_MODULE_LOADING"] = "EAGER"
+        proc = subprocess.run(
+            [sys.executable, __file__, "--prewarm-child", data_dir],
+            capture_output=True, text=True, timeout=300, env=env)
+        if proc.returncode != 0:
+            raise AssertionError(f"prewarm child ({mode}) failed "
+                                 f"({proc.returncode}):\n"
+                                 f"{proc.stderr[-3000:]}")
+        line = next(ln for ln in proc.stdout.splitlines()
+                    if ln.startswith("PREWARM_CHILD "))
+        run = json.loads(line[len("PREWARM_CHILD "):])
+        if run["prewarm"] != (mode == "on"):
+            raise AssertionError(f"prewarm child ran with {run}")
+        runs[mode].append(run)
+    first = {q: runs["on"][0][q]["result"] for q in ("q1", "q6")}
+    got_q1 = {k: np.asarray(v) for k, v in first["q1"].items()}
+    assert_close_results("prewarm q1 vs cpu", got_q1, want_q1)
+    rows = {}
+    for mode, rs in runs.items():
+        for i, run in enumerate(rs):
+            for q in ("q1", "q6"):
+                r = run[q]
+                if r["result"] != first[q]:
+                    raise AssertionError(f"prewarm {mode} run {i} {q}: "
+                                         f"result differs from the first")
+                if r["prewarm_failures"]:
+                    raise AssertionError(f"prewarm {mode} run {i} {q}: "
+                                         f"{r['prewarm_failures']} failures")
+                if (mode == "on") != (r["prewarm_compiles"] > 0):
+                    raise AssertionError(f"prewarm {mode} run {i} {q}: "
+                                         f"{r['prewarm_compiles']} programs")
+                r.pop("result")
+                rows.setdefault(f"{q}_{mode}", []).append(r)
+                log(f"# prewarm {mode} run {i} first {q}: {json.dumps(r)}")
+    for q in ("q1", "q6"):
+        for key in ("wall_s", "compile_s", "allocated_mb"):
+            med = {m: float(np.median([r[key] for r in rows[f"{q}_{m}"]]))
+                   for m in runs}
+            log(f"# prewarm first {q} {key} median: on {med['on']:.4f}, "
+                f"off {med['off']:.4f}, off with eager module loading "
+                f"{med['eager_loading']:.4f}")
+    launches["prewarm_q1"] = {m: [r["launches"] for r in rows[f"q1_{m}"]]
+                              for m in ("on", "off")}
+    return rows
+
+
+def phase_aot(data_dir: str, want_q1: dict) -> dict:
+    """(d) q1 with ``BALLISTA_FUSION_AOT_DIR`` naming an empty directory,
+    from a cleared governor: the directory stays empty, ``aot_loads`` and
+    ``aot_exports`` stay 0 (``compile_stats()`` and ``system.compile``),
+    and the result equals the port on the CPU."""
+    import shutil
+    import tempfile
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.compile import compile_stats, governor
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    aot_dir = tempfile.mkdtemp(prefix="aot-")
+    os.environ["BALLISTA_FUSION_AOT_DIR"] = aot_dir
+    try:
+        governor().clear()
+        ctx = BallistaContext.standalone()
+        register_tpch(ctx, data_dir, tables=["lineitem"])
+        sql = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+        got = ctx.sql(sql).to_pydict()
+        assert_close_results("q1 with BALLISTA_FUSION_AOT_DIR", got, want_q1)
+        st = compile_stats()
+        rows = ctx.sql("select aot_loads from system.compile").to_pydict()
+        left = os.listdir(aot_dir)
+        if left or st["aot_loads"] or st["aot_exports"] or \
+                any(int(v) for v in rows["aot_loads"]):
+            raise AssertionError(f"AOT directory {left}, stats "
+                                 f"{st['aot_loads']}/{st['aot_exports']}, "
+                                 f"system.compile {rows['aot_loads']}")
+    finally:
+        os.environ.pop("BALLISTA_FUSION_AOT_DIR", None)
+        shutil.rmtree(aot_dir, ignore_errors=True)
+    log(f"# AOT: q1 with BALLISTA_FUSION_AOT_DIR == cpu; the directory "
+        f"stayed empty, aot_loads 0, aot_exports 0 "
+        f"({len(rows['aot_loads'])} system.compile rows)")
+    return {"entries": len(rows["aot_loads"])}
+
+
+def phase_subqueries_prewarm_aot(card: str, data_dir: str, small_dir: str,
+                                 small_want: dict, want_q1: dict) -> tuple:
+    """Phase 16: server-planned and Flight scalar subqueries on the card,
+    the prewarm pass in fresh processes, the AOT knob."""
+    t0 = time.perf_counter()
+    launches = {}
+    row = {"server": phase_server_subqueries(data_dir, launches),
+           "flight": phase_flight_subqueries(small_dir, small_want),
+           "prewarm": phase_prewarm(data_dir, want_q1, launches),
+           "aot": phase_aot(data_dir, want_q1)}
+    row["seconds"] = time.perf_counter() - t0
+    log(f"# phase 16 (subqueries, prewarm, AOT) took {row['seconds']:.1f} s "
+        f"on {card}")
+    return row, launches
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -3092,6 +3420,9 @@ def main() -> int:
     ap.add_argument("--first-collect", metavar="DATA_DIR",
                     help="only run phase 15's first collects of q1 (in the "
                          "fresh process phase 15 starts)")
+    ap.add_argument("--prewarm-child", metavar="DATA_DIR",
+                    help="only run phase 16's first q1 and q6 (in the "
+                         "fresh processes phase 16 starts)")
     args = ap.parse_args()
     card_id = use_one_card()
     if not torch.cuda.is_available():
@@ -3102,6 +3433,8 @@ def main() -> int:
         return 0
     if args.first_collect:
         return first_collect_child(args.first_collect)
+    if args.prewarm_child:
+        return prewarm_child(args.prewarm_child)
     t_start = time.perf_counter()
     card = phase_card(card_id)
     phase_build()
@@ -3129,9 +3462,12 @@ def main() -> int:
         data_dir, setup_parquet(data_dir), cpu_results)
     cluster_row, cluster_launches = phase_cluster(data_dir, small_dir,
                                                   small_results)
+    small_want = {q: small_results[q] for q in SUBQUERY_QUERIES}
     del small_results
     observability_row, observability_launches = phase_observability(
         card, data_dir, cpu_results["q1"])
+    subquery_row, subquery_launches = phase_subqueries_prewarm_aot(
+        card, data_dir, small_dir, small_want, cpu_results["q1"])
     phase_capture_failure()
     if args.profile:
         for q in ("q1", "q3", "q5"):
@@ -3147,6 +3483,7 @@ def main() -> int:
     log(f"# parquet: {json.dumps(parquet_row)}")
     log(f"# cluster: {json.dumps(cluster_row)}")
     log(f"# observability: {json.dumps(observability_row)}")
+    log(f"# subqueries, prewarm, AOT: {json.dumps(subquery_row)}")
     kernels = [{
         "name": "dense_grouped_sums",
         "route": "cuda",
@@ -3182,6 +3519,8 @@ def main() -> int:
         "cluster_explain_analyze_q1_launches":
             observability_launches["cluster_explain_q1"],
         "flight_q1_launches": observability_launches["flight_q1"],
+        "prewarm_q1_launches": subquery_launches["prewarm_q1"],
+        "server_subquery_launches": subquery_launches["server_subquery"],
         "q5_ms": q5_main["ms"],
         "q5_call_ms": q5_main["call_ms"],
         "q5_plain_ms": q5_main["plain_ms"],

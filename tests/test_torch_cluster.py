@@ -27,8 +27,6 @@ two tasks):
 - the modules copied verbatim equal the JAX package's text with the
   package name replaced (one, whose docstring drops history references,
   its code);
-- a server-planned (``plan.server=on``) q11 fails naming ROADMAP queue
-  1 item 9c: its scalar subquery would run on the scheduler's CPU;
 - the binaries' options that need unported modules (mesh groups) exit
   with ``NotImplementedError_`` naming their ROADMAP item, and those
   that only configure them (``--num-devices``, the other mesh-group
@@ -313,20 +311,6 @@ def test_system_tables_have_the_reference_columns(contexts, runs):
                      "system.executors").to_pydict()
     assert len(execs["executor_id"]) == 2
     assert list(execs["num_devices"]) == [1, 1]
-
-
-def test_server_planned_subquery_is_refused(clusters, tpch_dir):
-    """With ``plan.server=on`` the scheduler plans the SQL; q11's scalar
-    subquery would then run on the scheduler's CPU, so the job fails
-    naming its ROADMAP item, and nothing of it runs."""
-    from ballista_tpu_torch.errors import ClusterError
-
-    port, _ref, _ = clusters
-    ctx = BallistaContext.remote("localhost", port.port, device="cpu",
-                                 **{"plan.server": "on"})
-    register_tpch(ctx, tpch_dir)
-    with pytest.raises(ClusterError, match="scalar subquery.*item 9c"):
-        ctx.sql(sql("q11")).to_pydict()
 
 
 # ---------------------------------------------------------------------------
@@ -653,7 +637,8 @@ def fake_etcd():
 
 @pytest.mark.parametrize("args,expected", [
     (["--state", "etcd:{etcd}"], ["(backend=etcd"]),
-    (["--flight-port", "0"], ["Arrow Flight SQL endpoint on"]),
+    (["--flight-port", "0", "--device", "cpu"],
+     ["Arrow Flight SQL endpoint on"]),
     (["--config-backend", "etcd", "--etcd-urls", "{etcd}"],
      ["(backend=etcd"]),
 ], ids=["etcd_state", "flight_port", "etcd_urls"])

@@ -485,6 +485,104 @@ def test_sweep_queries_on_the_graph_path(graphs):
 
 
 # ---------------------------------------------------------------------------
+# warm(): the prewarm pass's first call
+# ---------------------------------------------------------------------------
+
+
+def _warm_then_call(device):
+    """warm() builds the signature's program (counted as a prewarm, not a
+    first call); the real call of the same signature replays it, a
+    second warm() is a no-op."""
+    fn = governed(("sort.run", f"test.warm.{device}"),
+                  lambda: (lambda x: (x * 7 - 3, x.sum())))
+    x = torch.arange(1 << 12, device=device)
+    before = compile_stats()
+    assert fn.warm(torch.zeros_like(x)) is True
+    mid = compile_stats()
+    assert mid["prewarm_compiles"] == before["prewarm_compiles"] + 1
+    for k in ("graph_captures", "programs_built", "first_call_seconds"):
+        assert mid[k] == before[k], k
+    out, total = fn(x)
+    assert torch.equal(out, x * 7 - 3) and int(total) == int(x.sum())
+    assert fn.warm(torch.zeros_like(x)) is False
+    end = compile_stats()
+    assert end["graph_captures"] == before["graph_captures"]
+    assert end["graph_replays"] == mid["graph_replays"] + 1
+    assert end["prewarm_compiles"] == mid["prewarm_compiles"]
+
+
+def test_warm_then_call_replays_on_the_graph_path(monkeypatch):
+    with emulated_graphs(monkeypatch):
+        _warm_then_call("cpu")
+
+
+def test_warm_without_keep_runs_the_warm_up_only(monkeypatch):
+    """warm(keep=False) runs the program once (its warm-up) and keeps no
+    program: it counts as a prewarm, the real call of the same signature
+    then warms up and captures it itself."""
+    ran = []
+
+    def build():
+        def f(x):
+            ran.append(int(x.shape[0]))
+            return x - 1
+        return f
+
+    with emulated_graphs(monkeypatch):
+        fn = governed(("sort.run", "test.warm.nokeep"), build)
+        x = torch.arange(256)
+        before = compile_stats()
+        assert fn.warm(torch.zeros_like(x), keep=False) is True
+        mid = compile_stats()
+        assert ran == [256] and not fn.programs
+        assert mid["prewarm_compiles"] == before["prewarm_compiles"] + 1
+        for k in ("graph_captures", "programs_built", "first_call_seconds"):
+            assert mid[k] == before[k], k
+        assert torch.equal(fn(x), x - 1)
+        end = compile_stats()
+        assert len(fn.programs) == 1
+        assert end["graph_captures"] == mid["graph_captures"] + 1
+
+
+def test_first_call_waits_for_a_warm_of_its_signature(monkeypatch):
+    """A real first call that arrives while the prewarm thread captures
+    its signature waits on the capture lock (the wait is counted) and
+    replays that capture instead of capturing again."""
+    started, release = threading.Event(), threading.Event()
+
+    def build():
+        def f(x):
+            if not release.is_set():
+                started.set()
+                release.wait(10)
+            return x + 1
+        return f
+
+    with emulated_graphs(monkeypatch):
+        fn = governed(("sort.run", "test.warm.race"), build)
+        x = torch.arange(64)
+        before = compile_stats()
+        warm = threading.Thread(target=fn.warm, args=(torch.zeros_like(x),))
+        warm.start()
+        assert started.wait(10)
+        box = {}
+        call = threading.Thread(target=lambda: box.update(out=fn(x)))
+        call.start()
+        call.join(0.2)
+        assert call.is_alive()  # waiting on the warm's capture
+        release.set()
+        warm.join(10)
+        call.join(10)
+        assert torch.equal(box["out"], x + 1)
+        st = compile_stats()
+        assert st["prewarm_compiles"] == before["prewarm_compiles"] + 1
+        assert st["graph_captures"] == before["graph_captures"]
+        assert st["graph_replays"] == before["graph_replays"] + 1
+        assert st["capture_lock_wait_seconds"] > \
+            before["capture_lock_wait_seconds"]
+
+
+# ---------------------------------------------------------------------------
 # on a card
 # ---------------------------------------------------------------------------
 
@@ -643,3 +741,10 @@ def test_cuda_capture_after_every_program_was_dropped():
     for _ in range(2):
         assert torch.equal(again(x), x * 5 - 2)
     assert compile_stats()["graph_captures"] == before + 1
+
+
+def test_cuda_warm_then_call_replays():
+    """The prewarm pass's warm() on the card: warm-up and capture off the
+    query's first-call count, then the real call replays."""
+    _needs_card()
+    _warm_then_call("cuda")

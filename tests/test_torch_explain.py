@@ -18,8 +18,8 @@ TPC-H SF0.002 (the counterpart of ``tests/test_explain.py``):
 - EXPLAIN through a port ``LocalCluster`` (``plan.server=on``, the
   scheduler plans it) equals the standalone rows, and EXPLAIN ANALYZE
   of q1 ships as one task whose operators and row counts equal the
-  standalone ANALYZE's; a server-planned EXPLAIN of q11 is refused
-  naming ROADMAP queue 1 item 9c, as a plain q11 is.
+  standalone ANALYZE's; a server-planned EXPLAIN of q11, whose scalar
+  subquery the scheduler resolves, equals the standalone rows too.
 """
 
 import re
@@ -157,7 +157,6 @@ def cluster():
 
 def test_explain_through_the_cluster(cluster, port, tpch_dir):
     from ballista_tpu_torch.client import BallistaContext
-    from ballista_tpu_torch.errors import BallistaError
 
     ctx = BallistaContext.remote("localhost", cluster.port, device="cpu",
                                  **{"plan.server": "on"})
@@ -175,6 +174,8 @@ def test_explain_through_the_cluster(cluster, port, tpch_dir):
                             .to_pydict()))
     assert _operators(analyzed["plan_with_metrics"]) == \
         _operators(standalone["plan_with_metrics"])
-    # the scheduler runs no subquery: an EXPLAIN of q11 is refused too
-    with pytest.raises(BallistaError, match="item 9c"):
-        ctx.sql("EXPLAIN " + sql("q11")).collect()
+    # the scheduler resolves q11's scalar subquery on its device before
+    # rendering, as the standalone EXPLAIN does
+    text = "EXPLAIN " + sql("q11")
+    assert _rows(ctx.sql(text).collect()) == \
+        _rows(port.sql(text).to_pydict())

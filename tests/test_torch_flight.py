@@ -8,18 +8,23 @@ client speaks to it, as the reference's JDBC driver does:
   proto ``Action`` ticket streams a partition file the port wrote; a
   failing query surfaces as a ``FlightError``; a ``to_timestamp`` keeps
   its time of day;
-- the scheduler binary's Flight path (``scheduler_main._serve_flight``)
-  over a port ``LocalCluster``: tables registered by ``CREATE EXTERNAL
-  TABLE`` tickets, TPC-H SF0.002 q1 and ``EXPLAIN q1`` equal the port's
-  standalone results, and q11 (a scalar subquery, which the loopback
-  context would run on the scheduler's CPU) is refused naming ROADMAP
-  queue 1 item 9c, as a ``FlightServerError``;
+- the scheduler binary (``python -m ballista_tpu_torch.distributed.
+  scheduler_main --flight-port 0 --device cpu``, two in-process
+  executors on the CPU): tables registered by ``CREATE EXTERNAL TABLE``
+  tickets, TPC-H SF0.002 q1 and ``EXPLAIN q1`` equal the port's
+  standalone results, and q11, q15 and q22 (one scalar subquery each,
+  resolved by the binary's loopback context on its ``--device``) equal
+  the JAX package's;
 - the JAX package's Flight client reads the port's server and the port's
   module equals the JAX package's text.
 """
 
-import argparse
 import os
+import re
+import signal
+import subprocess
+import sys
+import time
 
 import numpy as np
 import pytest
@@ -33,7 +38,8 @@ from ballista_tpu_torch.io import TblSource  # noqa: E402
 from ballista_tpu_torch.testing.tpch_schema import tpch_ddl  # noqa: E402
 
 from torch_warm_path import (assert_equals_reference,  # noqa: E402
-                             generate_tpch, pinned_threads, port_ctx, sql)
+                             generate_tpch, pinned_threads, port_ctx,
+                             reference_result, sql)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
@@ -147,29 +153,60 @@ def tpch_dir(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def binary_flight(tpch_dir):
-    """The scheduler binary's Flight endpoint over a port LocalCluster,
-    with lineitem, nation, supplier and partsupp registered the way a
-    Flight client does: DDL tickets."""
-    from ballista_tpu_torch.distributed import scheduler_main
-    from ballista_tpu_torch.distributed.executor import LocalCluster
+    """The scheduler binary with its Flight endpoint on the CPU
+    (``--device cpu``) and two in-process executors, with the tables
+    the queries read registered the way a Flight client does: DDL
+    tickets."""
+    from ballista_tpu_torch.distributed.executor import (Executor,
+                                                         ExecutorConfig)
 
-    cluster = LocalCluster(num_executors=2, concurrent_tasks=2,
-                           device="cpu")
-    server = None
+    env = dict(os.environ, PYTHONPATH=ROOT, BALLISTA_INGEST_THREADS="1",
+               BALLISTA_SCAN_THREADS="1", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "ballista_tpu_torch.distributed.scheduler_main", "--port", "0",
+         "--bind-host", "127.0.0.1", "--flight-port", "0", "--device",
+         "cpu", "--metrics-port", "-1"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    executors, lines = [], []
     try:
-        cfg = {"bind_host": "127.0.0.1", "flight_port": 0}
-        server = scheduler_main._serve_flight(cfg, cluster.port,
-                                              argparse.ArgumentParser())
-        client = paflight.connect(f"grpc://127.0.0.1:{server.port}")
-        for table in ("lineitem", "nation", "supplier", "partsupp"):
+        ports = {}
+        deadline = time.time() + 90
+        while len(ports) < 2 and time.time() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            for key, pat in (("grpc", r"listening on [\d.]+:(\d+)"),
+                             ("flight", r"Flight SQL endpoint on "
+                                        r"[\d.]+:(\d+)")):
+                m = re.search(pat, line)
+                if m:
+                    ports[key] = int(m.group(1))
+        assert len(ports) == 2, "".join(lines)
+        for _ in range(2):
+            e = Executor(ExecutorConfig(
+                scheduler_host="127.0.0.1", scheduler_port=ports["grpc"],
+                concurrent_tasks=2, device="cpu"))
+            e.start()
+            executors.append(e)
+        client = paflight.connect(f"grpc://127.0.0.1:{ports['flight']}")
+        for table in ("lineitem", "nation", "supplier", "partsupp",
+                      "customer", "orders"):
             status = client.do_get(paflight.Ticket(
                 tpch_ddl(table, tpch_dir).encode())).read_all()
             assert status["status"].to_pylist() == ["OK"]
         yield client
     finally:
-        if server is not None:
-            server.shutdown()
-        cluster.shutdown()
+        for e in executors:
+            e.stop()
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
 
 
 def test_binary_flight_q1_equals_standalone(binary_flight, tpch_dir):
@@ -188,10 +225,13 @@ def test_binary_flight_explain_equals_standalone(binary_flight, tpch_dir):
     assert got["plan"] == list(want["plan"])
 
 
-def test_binary_flight_refuses_a_scalar_subquery(binary_flight):
-    with pytest.raises(paflight.FlightServerError, match="item 9c"):
-        binary_flight.do_get(
-            paflight.Ticket(sql("q11").encode())).read_all()
+@pytest.mark.parametrize("q", ["q11", "q15", "q22"])
+def test_binary_flight_scalar_subquery_equals_reference(binary_flight,
+                                                        tpch_dir, q):
+    got = binary_flight.do_get(
+        paflight.Ticket(sql(q).encode())).read_all().to_pandas()
+    assert_equals_reference({c: got[c].to_numpy() for c in got.columns},
+                            reference_result(tpch_dir, q))
 
 
 def test_reference_client_reads_the_port_server(sql_server):
