@@ -95,8 +95,9 @@ __all__ = [
 
 _PERF = time.perf_counter
 
-# LRU bound for mesh-path namespaces, as in the JAX package (the mesh
-# modules are not ported yet; the bound is kept for them).
+# LRU bound for the mesh programs' namespaces (``mesh.*``), as in the
+# JAX package: their signatures hold per-query dictionaries, so an
+# unbounded namespace would pin programs and dictionaries forever.
 MESH_NS_CAP = 32
 
 # Namespaces whose programs are captured as CUDA graphs on a card. Every
@@ -121,6 +122,15 @@ CAPTURE: Dict[str, bool] = {
     "join.unique": True,
     "join.expand": True,
     "join.unmatched": True,
+    # the mesh programs of one process: every slot's work, exchange
+    # included, in one graph (physical/mesh_agg.py, mesh_input.py); the
+    # ``*.group`` namespaces of a multi-process mesh run eagerly
+    "mesh.agg_spmd": True,
+    "mesh.join_spmd": True,
+    "mesh.compact_to": True,
+    "mesh.compact": True,
+    "mesh.chain": True,
+    "mesh.partial_agg": True,
 }
 
 # process-wide totals (plain ints/floats under the GIL — the same

@@ -5,8 +5,10 @@ runs its tasks on one torch device (``ExecutorConfig.device``, "cuda" by
 default; "cpu" only when asked): every task plan is deserialized onto
 it. The streaming writes a task ends with (``write_partition``,
 ``write_shuffled``) are module functions, shared with the test harness
-``testing/stages.py``. Mesh groups (``mesh_group``, ``physical.mesh_agg``)
-are not ported (ROADMAP queue 1 item 10).
+``testing/stages.py``. An executor reporting ``num_devices`` n >= 2 runs
+mesh-fused tasks (``physical/mesh_agg.py``) over n slots on its device;
+one fronting a multi-process mesh group (``mesh_group``) broadcasts them
+to the group's other processes first.
 
 Re-implements the reference executor (reference: rust/executor/src/
 execution_loop.rs:31-160 poll loop, flight_service.rs:89-192 partition
@@ -71,6 +73,16 @@ def drain_timeout_secs() -> float:
         return 20.0
 
 
+def _needs_mesh(plan) -> bool:
+    """True when the plan contains a mesh-fused operator (its program
+    must run on every process of a mesh group)."""
+    from ..physical.mesh_agg import MeshAggExec, MeshJoinExec
+
+    if isinstance(plan, (MeshAggExec, MeshJoinExec)):
+        return True
+    return any(_needs_mesh(c) for c in plan.children())
+
+
 class ExecutorConfig:
     """(reference: executor_config_spec.toml:1-61)"""
 
@@ -97,9 +109,9 @@ class ExecutorConfig:
         # None = resolve from BALLISTA_NATIVE_DATAPLANE (default: native)
         self.native_dataplane = native_dataplane
         self.port = port
-        # devices this executor owns (reported in PollWork metadata;
-        # mesh fusion is driven by these fleet reports — a client
-        # mesh.devices setting is only validated against them)
+        # mesh slots this executor owns on ``device`` (reported in
+        # PollWork metadata; mesh fusion is driven by these fleet reports
+        # — a client mesh.devices setting is only validated against them)
         self.num_devices = num_devices
         self.work_dir = work_dir or tempfile.mkdtemp(prefix="ballista-")
         self.concurrent_tasks = concurrent_tasks
@@ -112,8 +124,12 @@ class ExecutorConfig:
 
 
 class Executor:
-    def __init__(self, config: ExecutorConfig):
+    def __init__(self, config: ExecutorConfig, mesh_group=None):
         self.config = config
+        # mesh_group: a mesh_group.GroupLeader when this executor fronts
+        # a multi-process mesh; fused tasks are broadcast so every member
+        # enters the same program
+        self.mesh_group = mesh_group
         self.id = str(uuid.uuid4())
         # distributed profiler: stamp this process's identity onto every
         # trace/flight-recorder record (first writer wins — harmless for
@@ -587,7 +603,18 @@ class Executor:
                              task=pid.key()), \
                         trace_span("executor.task", task=pid.key(),
                                    executor=self.id[:8]):
-                    stats = self.execute_partition(pid, plan, shuffle)
+                    if self.mesh_group is not None and _needs_mesh(plan):
+                        # group task: broadcast so every member process
+                        # enters the program together; serialized (the
+                        # collectives must align across processes)
+                        with self.mesh_group.lock:
+                            seq = self.mesh_group.broadcast(
+                                td.SerializeToString())
+                            stats = self.execute_partition(pid, plan,
+                                                           shuffle)
+                            self.mesh_group.wait_acks(seq)
+                    else:
+                        stats = self.execute_partition(pid, plan, shuffle)
                 profile = None
                 if capture:
                     try:

@@ -9,10 +9,9 @@ query, ``plan.server``). Those run on the scheduler's ``device``
 (``"cuda"`` by default, the JAX scheduler's default device), their scans
 reading the catalog's sources opened there, before the plan is cut into
 stages; a plan without one never touches the device, so such a
-scheduler creates no CUDA context. The mesh fast path
-(``physical.mesh_agg``) is not ported (ROADMAP queue 1 item 10): a fleet
-reporting more than one device per executor is refused, not planned
-unfused.
+scheduler creates no CUDA context. A fleet whose executors report a
+mesh of n >= 2 slots each gets mesh-fused stages (``_fuse_mesh_stages``,
+``physical/mesh_agg.py``), as the JAX scheduler plans them.
 
 Re-implements the reference scheduler (reference: rust/scheduler/src/
 lib.rs — the 5 SchedulerGrpc RPCs; execute_query background planning at
@@ -38,7 +37,7 @@ from typing import Dict, Optional
 
 import grpc
 
-from ..errors import ClusterError, NotImplementedError_
+from ..errors import ClusterError
 from ..execution import (map_scalar_subqueries, plan_logical,
                          resolve_scalar_subqueries)
 from ..lifecycle import CancelToken, bind_token
@@ -78,26 +77,127 @@ _GRPC_MSG_OPTS = [
 
 
 def _fuse_mesh_stages(stages, n_mesh: int):
-    """ICI fast path: collapse a hash-shuffle stage + its final-aggregate
-    consumer into ONE MeshAggExec stage that runs the shuffle as an
-    in-SPMD ``lax.all_to_all`` over the executor's device mesh instead of
-    writing N^2 shuffle files through the data plane (the model being
-    replaced: location-resolved file fetches, reference
-    rust/scheduler/src/planner.rs:236-269 + shuffle_reader.rs:77-99).
+    """In-mesh fast path: collapse a hash-shuffle stage + its
+    final-aggregate consumer into ONE MeshAggExec stage that runs the
+    shuffle as a row exchange between the slots of the executor's mesh
+    instead of writing N^2 shuffle files through the data plane (the
+    model being replaced: location-resolved file fetches, reference
+    rust/scheduler/src/planner.rs:236-269 + shuffle_reader.rs:77-99),
+    and a partitioned join with its two hash-shuffle producers into one
+    MeshJoinExec.
 
     ``n_mesh`` is the CLUSTER-resolved mesh width (executor-reported
     device counts, see ``_cluster_mesh_devices``), not a client hint;
     < 2 disables fusion. Pattern matched exactly: consumer stage whose
     plan is HashAggregateExec(final) over UnresolvedShuffleExec([S])
-    where S is a hash-shuffle stage.
+    where S is a hash-shuffle stage. The fused nodes are built on the
+    scheduler's CPU, only to be serialized."""
+    from ..physical import operators as ops
+    from ..physical.aggregate import HashAggregateExec
+    from ..physical.join import JoinExec
+    from ..physical.mesh_agg import MeshAggExec, MeshJoinExec
+    from ..physical.shuffle import QueryStageExec, UnresolvedShuffleExec
 
-    Not ported: ``physical.mesh_agg`` waits for ROADMAP queue 1 item
-    10, so ``n_mesh >= 2`` raises instead of planning unfused."""
     if n_mesh < 2:
         return stages
-    raise NotImplementedError_(
-        f"executors report {n_mesh} devices each: mesh-fused stages are "
-        "not ported yet (ROADMAP queue 1 item 10)")
+    from collections import Counter
+
+    # by_id is kept UP TO DATE with rewritten stages, so a consumer
+    # fusing later absorbs the fused producer subtree (chained joins),
+    # never a stale child with dangling references to dropped stages
+    by_id = {s.stage_id: s for s in stages}
+    refcount = Counter(
+        sid
+        for s in stages
+        for u in find_unresolved_shuffles(s.child)
+        for sid in u.query_stage_ids
+    )
+    fused = []
+    dropped = set()
+    for stage in stages:
+        # walk through single-child vertical wrappers (output projection,
+        # HAVING filter) to the final aggregate
+        wrappers = []
+        plan = stage.child
+        while isinstance(plan, (ops.ProjectionExec, ops.FilterExec)):
+            wrappers.append(plan)
+            plan = plan.children()[0]
+
+        def _shuffle_producer(node):
+            """The single hash-shuffle producer stage behind an
+            UnresolvedShuffleExec (referenced nowhere else, so dropping
+            it is safe), or None."""
+            if not (isinstance(node, UnresolvedShuffleExec)
+                    and len(node.query_stage_ids) == 1):
+                return None
+            sid = node.query_stage_ids[0]
+            prod = by_id.get(sid)
+            if prod is None or sid in dropped or refcount[sid] != 1 \
+                    or not prod.shuffle_output_partitions \
+                    or not prod.shuffle_hash_exprs:
+                return None
+            return prod
+
+        new_plan = None
+        if isinstance(plan, HashAggregateExec) and plan.mode == "final":
+            producer = _shuffle_producer(plan.child)
+            if producer is not None:
+                dropped.add(producer.stage_id)
+                new_plan = MeshAggExec(
+                    producer.child, plan.group_exprs, plan.agg_exprs,
+                    list(producer.shuffle_hash_exprs), n_mesh,
+                    plan.group_capacity, device=_HOST,
+                )
+                log.info("fused stages %d+%d into a %d-device mesh "
+                         "shuffle-agg", producer.stage_id, stage.stage_id,
+                         n_mesh)
+        else:
+            # partitioned-join fusion: the JoinExec may sit anywhere in
+            # the stage plan (e.g. under a partial aggregate) — replace
+            # the subtree; everything above it runs on host over the
+            # fused single-partition output
+            def replace_join(node):
+                if isinstance(node, JoinExec) and node.partitioned:
+                    bprod = _shuffle_producer(node.build)
+                    pprod = _shuffle_producer(node.probe)
+                    if bprod is not None and pprod is not None:
+                        dropped.update({bprod.stage_id, pprod.stage_id})
+                        log.info(
+                            "fused stages %d+%d+%d into a %d-device mesh "
+                            "shuffle-join (how=%s)", bprod.stage_id,
+                            pprod.stage_id, stage.stage_id, n_mesh,
+                            node.how)
+                        return MeshJoinExec(bprod.child, pprod.child,
+                                            node.on, node.how, n_mesh,
+                                            null_aware=node.null_aware,
+                                            device=_HOST)
+                kids = node.children()
+                if not kids:
+                    return node
+                new_kids = [replace_join(c) for c in kids]
+                if all(a is b for a, b in zip(kids, new_kids)):
+                    return node
+                return node.with_new_children(new_kids)
+
+            replaced = replace_join(plan)
+            if replaced is not plan:
+                new_plan = replaced
+        if new_plan is None:
+            fused.append(stage)
+            continue
+        for w in reversed(wrappers):
+            new_plan = w.with_new_children([new_plan])
+        # PRESERVE the stage's own shuffle spec: a fused stage may itself
+        # feed a downstream shuffle (e.g. one partitioned join in a chain
+        # of them) — its single task then hash-splits its output as usual
+        rebuilt = QueryStageExec(
+            stage.job_id, stage.stage_id, new_plan,
+            shuffle_hash_exprs=stage.shuffle_hash_exprs,
+            shuffle_output_partitions=stage.shuffle_output_partitions,
+        )
+        by_id[stage.stage_id] = rebuilt
+        fused.append(rebuilt)
+    return [s for s in fused if s.stage_id not in dropped]
 
 
 def _scans_on(plan, device) -> None:
@@ -168,9 +268,14 @@ def _cluster_mesh_devices(state: SchedulerState, settings,
 
 def _mesh_requirement(plan) -> int:
     """Devices a task of this stage needs (max over mesh-fused nodes;
-    0 = any executor). Drives device-aware task assignment. Always 0
-    here: ``_fuse_mesh_stages`` makes no mesh-fused node."""
-    return 0
+    0 = any executor). Drives device-aware task assignment."""
+    from ..physical.mesh_agg import MeshAggExec, MeshJoinExec
+
+    need = (plan.n_devices
+            if isinstance(plan, (MeshAggExec, MeshJoinExec)) else 0)
+    for c in plan.children():
+        need = max(need, _mesh_requirement(c))
+    return need
 
 
 def _job_id() -> str:

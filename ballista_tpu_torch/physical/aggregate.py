@@ -476,23 +476,26 @@ class HashAggregateExec(PhysicalPlan):
 
         return build
 
+    def _grouped_body(self, cap: int):
+        """The body of the ``agg.grouped`` program at group capacity
+        ``cap``: dense (the CUDA kernel's path) or sort-based grouping,
+        picked inside from the keys' dictionaries. Also called per slot
+        inside the mesh programs (``mesh_agg.py``, ``mesh_input.py``),
+        as the JAX package's jitted function inlines into ``shard_map``."""
+        tw = self.trace_twin()  # don't pin the input subtree
+
+        def run(b: ColumnBatch):
+            b = tw._device_prologue(b)
+            key_evals, aggs = tw._inputs_and_keys(b)
+            res = tw._run_grouping(b, key_evals, aggs, cap)
+            return tw._assemble(b, key_evals, res, cap), res.num_groups
+
+        return run
+
     def _grouped_fn(self, cap: int):
-        """The ``agg.grouped`` program at group capacity ``cap``: dense
-        (the CUDA kernel's path) or sort-based grouping, picked inside
-        from the keys' dictionaries."""
-
-        def build():
-            tw = self.trace_twin()  # don't pin the input subtree
-
-            def run(b: ColumnBatch):
-                b = tw._device_prologue(b)
-                key_evals, aggs = tw._inputs_and_keys(b)
-                res = tw._run_grouping(b, key_evals, aggs, cap)
-                return tw._assemble(b, key_evals, res, cap), res.num_groups
-
-            return run
-
-        return self.governed_jit(("agg.grouped", cap), build)
+        """The governed ``agg.grouped`` program (``_grouped_body``)."""
+        return self.governed_jit(("agg.grouped", cap),
+                                 lambda: self._grouped_body(cap))
 
     def _exec_grouped(self, batch: ColumnBatch) -> ColumnBatch:
         cap = self.group_capacity

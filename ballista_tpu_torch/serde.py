@@ -4,9 +4,9 @@ The port of the JAX package's ``serde.py``, over the same wire types (the
 port's ``proto/`` is a byte-identical copy; both register one
 ``ballista.proto``). The protobuf carries no device, so deserializing a
 plan or a source takes an explicit ``device`` (keyword, required) and
-hands it to every source and operator it builds. The mesh operators,
-not ported yet, raise :class:`SerdeError` naming ROADMAP queue 1 item
-10. A system-table source is rebuilt from the rows it shipped with.
+hands it to every source and operator it builds (the mesh operators
+lay their slots out on it). A system-table source is rebuilt from the
+rows it shipped with.
 
 Equivalent of the reference's serde layer (reference:
 rust/core/src/serde/logical_plan/{to_proto.rs,from_proto.rs} and
@@ -396,6 +396,7 @@ def physical_to_proto(plan) -> pb.PhysicalPlanNode:
     from .physical.aggregate import HashAggregateExec
     from .physical.explain import ExplainAnalyzeExec, ExplainExec
     from .physical.join import JoinExec
+    from .physical.mesh_agg import MeshAggExec, MeshJoinExec
     from .physical import operators as ops
     from .physical.shuffle import ShuffleReaderExec, UnresolvedShuffleExec
 
@@ -432,6 +433,28 @@ def physical_to_proto(plan) -> pb.PhysicalPlanNode:
         n.join.null_aware = plan.null_aware
         n.join.partitioned = plan.partitioned
         n.join.adaptive_note = plan.adaptive_note or ""
+    elif isinstance(plan, MeshJoinExec):
+        n.mesh_join.build_producer.CopyFrom(
+            physical_to_proto(plan.build_producer))
+        n.mesh_join.probe_producer.CopyFrom(
+            physical_to_proto(plan.probe_producer))
+        for l, r in plan.on:
+            o = n.mesh_join.on.add()
+            o.left_col = l
+            o.right_col = r
+        n.mesh_join.how = plan.how
+        n.mesh_join.n_devices = plan.n_devices
+        n.mesh_join.null_aware = plan.null_aware
+    elif isinstance(plan, MeshAggExec):
+        n.mesh_agg.producer.CopyFrom(physical_to_proto(plan.producer))
+        for e in plan.group_exprs:
+            n.mesh_agg.group_exprs.append(expr_to_proto(e))
+        for e in plan.agg_exprs:
+            n.mesh_agg.agg_exprs.append(expr_to_proto(e))
+        for e in plan.hash_exprs:
+            n.mesh_agg.hash_exprs.append(expr_to_proto(e))
+        n.mesh_agg.n_devices = plan.n_devices
+        n.mesh_agg.group_capacity = plan.group_capacity
     elif isinstance(plan, ops.SortExec):
         n.sort.input.CopyFrom(physical_to_proto(plan.child))
         for e in plan.sort_exprs:
@@ -484,12 +507,6 @@ def physical_from_proto(n: pb.PhysicalPlanNode, *, device):
     return _physical_from_proto(n, device)
 
 
-_LATER_ITEMS = {
-    "mesh_join": "MeshJoinExec is not ported yet: ROADMAP queue 1 item 10",
-    "mesh_agg": "MeshAggExec is not ported yet: ROADMAP queue 1 item 10",
-}
-
-
 def _physical_from_proto(n: pb.PhysicalPlanNode, device):
     from .physical.aggregate import HashAggregateExec
     from .physical.join import JoinExec
@@ -500,8 +517,6 @@ def _physical_from_proto(n: pb.PhysicalPlanNode, device):
         return _physical_from_proto(m, device)
 
     kind = n.WhichOneof("plan_type")
-    if kind in _LATER_ITEMS:
-        raise SerdeError(_LATER_ITEMS[kind])
     if kind == "scan":
         src = source_from_proto(n.scan.source, device=device)
         proj = list(n.scan.projection) if n.scan.has_projection else None
@@ -534,6 +549,31 @@ def _physical_from_proto(n: pb.PhysicalPlanNode, device):
             partitioned=n.join.partitioned,
             device=device,
             adaptive_note=n.join.adaptive_note or None,
+        )
+    if kind == "mesh_join":
+        from .physical.mesh_agg import MeshJoinExec
+
+        return MeshJoinExec(
+            physical_from_proto(n.mesh_join.build_producer),
+            physical_from_proto(n.mesh_join.probe_producer),
+            [(o.left_col, o.right_col) for o in n.mesh_join.on],
+            n.mesh_join.how,
+            n.mesh_join.n_devices,
+            null_aware=n.mesh_join.null_aware,
+            device=device,
+        )
+    if kind == "mesh_agg":
+        from .physical.aggregate import DEFAULT_GROUP_CAPACITY
+        from .physical.mesh_agg import MeshAggExec
+
+        return MeshAggExec(
+            physical_from_proto(n.mesh_agg.producer),
+            [expr_from_proto(e) for e in n.mesh_agg.group_exprs],
+            [expr_from_proto(e) for e in n.mesh_agg.agg_exprs],
+            [expr_from_proto(e) for e in n.mesh_agg.hash_exprs],
+            n.mesh_agg.n_devices,
+            n.mesh_agg.group_capacity or DEFAULT_GROUP_CAPACITY,
+            device=device,
         )
     if kind == "sort":
         return ops.SortExec(

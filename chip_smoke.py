@@ -196,18 +196,35 @@ non-zero exit):
    collect; every result equal to the first run's, q1 also to the port on the CPU; (d) q1 with
    ``BALLISTA_FUSION_AOT_DIR`` naming an empty directory: it stays
    empty, ``aot_loads`` and ``aot_exports`` 0, the result equal;
-17. in a process of its own, a governed program that cannot be captured
+17. the mesh: a ``LocalCluster(2, 2, num_devices=4)`` on the card (four
+   mesh slots an executor, all on the card) runs q1, q3 and q5 at SF1
+   (lineitem and orders in 4 files, ``agg.partitions=4``) three times
+   through mesh-fused stages: every task plan on the card, q1's holding a
+   ``MeshAggExec`` and q3's and q5's a ``MeshJoinExec`` over 4 slots;
+   each result equal to phase 14's unfused cluster and the numpy
+   implementations (floats within rtol 1e-6); every observed kernel call
+   bit-equal to the plain version, q1's final aggregate launching it once
+   per slot; walls, captures, replays, peak memory and launches per run,
+   and a profiled repeated q5 (card-busy share). Then each join type
+   (inner, left, semi, anti, full, left with NULL keys, null-aware anti)
+   of ``MeshJoinExec`` over 4 slots against ``JoinExec`` on the card, on
+   a seeded pair of 1,000,000 probe and 250,000 build rows, row for row;
+   and ``executor_main --local --num-devices 4`` fusing q1 at SF0.05
+   (equal to the standalone result, 4 slots reported, drained on
+   SIGTERM). The cross-process path is not run: one card;
+18. in a process of its own, a governed program that cannot be captured
    (it reads a device value on the host) must raise ``CaptureError``
    rather than run eagerly;
-18. the kernel list, as one JSON line; its times, replicas and VEC are
+19. the kernel list, as one JSON line; its times, replicas and VEC are
     those on q1's main-path inputs, with q5's launches and times beside
     them, and the launches of q5 through the adapted join, of q1 over
     the streamed lineitem, of q1 and q5 from Parquet, of q1 and q5
     through the cluster's executor tasks (their first runs), of
     ``EXPLAIN ANALYZE`` q1 and q5 standalone and q1 through the cluster,
     of q1 sent over Arrow Flight, of the first q1 with the prewarm pass
-    on and off (per fresh process), and inside each server-planned
-    subquery.
+    on and off (per fresh process), inside each server-planned
+    subquery, and of the first mesh q1 (``mesh_q1_launches``; 4 of them
+    its final aggregate's, one per slot).
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -1214,6 +1231,14 @@ def profile_copies(fn, label: str) -> dict:
     busy = sum(e.self_device_time_total / 1e3 for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.self_device_time_total > 0)
+    # what held the card longest: kernels by name (a replayed graph's
+    # kernels too) and the operators that launched them eagerly
+    def top(kind):
+        return sorted(((e.key, e.self_device_time_total / 1e3)
+                       for e in prof.key_averages()
+                       if e.self_device_time_total > 0
+                       and e.device_type == kind),
+                      key=lambda kv: -kv[1])[:8]
     os.makedirs("bench_data", exist_ok=True)
     path = os.path.join("bench_data", f"trace-{label}-{os.getpid()}.json")
     prof.export_chrome_trace(path)
@@ -1222,7 +1247,11 @@ def profile_copies(fn, label: str) -> dict:
             events = json.load(f)["traceEvents"]
     finally:
         os.remove(path)
-    out = {"wall_s": wall, "busy_ms": busy}
+    out = {"wall_s": wall, "busy_ms": busy, **{
+        name: [[k[:70], round(ms, 4)] for k, ms in top(kind)]
+        for name, kind in (
+            ("top_kernels_ms", torch.autograd.DeviceType.CUDA),
+            ("top_ops_ms", torch.autograd.DeviceType.CPU))}}
     for kind in ("DtoH", "HtoD"):
         copies = [e for e in events if e.get("cat") == "gpu_memcpy"
                   and kind in e.get("name", "")]
@@ -2473,7 +2502,7 @@ def phase_cluster(data_dir: str, small_dir: str, small_want: dict):
     standalone = BallistaContext.standalone()
     register_tpch(standalone, data_dir)
     cluster = LocalCluster(num_executors=2, concurrent_tasks=2)
-    rows, launches = [], {}
+    rows, launches, unfused = [], {}, {}
     try:
         check_executors(cluster)
         ctx = cluster_context(cluster, data_dir, split_dir)
@@ -2531,6 +2560,8 @@ def phase_cluster(data_dir: str, small_dir: str, small_want: dict):
                     "shuffle_bytes_read": read,
                 }
                 launches[(q, label)] = n_launch
+                if label == "first":
+                    unfused[q] = out
                 log(f"# cluster {q} {label}: {wall:.4f} s against the "
                     f"standalone warm {warm_wall:.4f} s; stages (tasks, "
                     f"fan-out, version) {row[label]['plan_shape']}"
@@ -2593,7 +2624,8 @@ def phase_cluster(data_dir: str, small_dir: str, small_want: dict):
     secs = time.perf_counter() - t_phase
     log(f"# phase 14 (cluster) took {secs:.1f} s")
     return {"rows": rows, "sockets_q5": sockets, "q5_copies": copies,
-            "small_s": small_s, "binary": binary, "seconds": secs}, launches
+            "small_s": small_s, "binary": binary, "seconds": secs}, \
+        launches, unfused
 
 
 # -- phase 15 ---------------------------------------------------------------
@@ -3378,6 +3410,281 @@ def phase_subqueries_prewarm_aot(card: str, data_dir: str, small_dir: str,
     return row, launches
 
 
+# -- phase 17 ---------------------------------------------------------------
+
+MESH_SLOTS = 4
+
+
+def stacked_rows(batches) -> np.ndarray:
+    """The live rows of ``batches`` as one int64 matrix (a column per
+    field, NULL as int64's minimum), sorted row-wise: a join's result in
+    a form two implementations can be compared in exactly."""
+    cols = None
+    for b in batches:
+        sel = b.selection.cpu().numpy()
+        part = []
+        for c in b.columns:
+            v = c.values.cpu().numpy().astype(np.int64)
+            if c.validity is not None:
+                v = np.where(c.validity.cpu().numpy(), v,
+                             np.iinfo(np.int64).min)
+            part.append(v[sel])
+        cols = part if cols is None else [np.concatenate([a, p])
+                                          for a, p in zip(cols, part)]
+    mat = np.stack(cols, axis=1)
+    return mat[np.lexsort(mat.T[::-1])]
+
+
+def mesh_join_pair(with_nulls: bool):
+    """A seeded build/probe pair on the card: 250,000 build rows (keys in
+    [0, 400,000): duplicates and misses; every 97th key NULL when asked)
+    in 2 partitions, 1,000,000 probe rows (keys in [100,000, 600,000)) in
+    4 partitions."""
+    from ballista_tpu_torch import datatypes as dt
+    from ballista_tpu_torch.columnar import Column, ColumnBatch
+    from ballista_tpu_torch.io.memory import MemTableSource
+    from ballista_tpu_torch.physical.operators import ScanExec
+
+    rng = np.random.default_rng(17)
+    bs = dt.Schema([dt.Field("bk", dt.Int64), dt.Field("bv", dt.Int64)])
+    ps = dt.Schema([dt.Field("pk_", dt.Int64), dt.Field("pv", dt.Int64)])
+    bk = rng.integers(0, 400_000, 250_000)
+    pk = rng.integers(100_000, 600_000, 1_000_000)
+    build_parts = []
+    for c in np.array_split(np.arange(len(bk)), 2):
+        b = ColumnBatch.from_numpy(bs, {"bk": bk[c], "bv": c}, device="cuda")
+        if with_nulls:
+            valid = np.zeros(b.capacity, bool)
+            valid[: len(c)] = (c % 97) != 0
+            col = b.columns[0]
+            b = b.with_columns(bs, (Column(
+                col.values, col.dtype, torch.from_numpy(valid).cuda(),
+                None), b.columns[1]))
+        build_parts.append([b])
+    probe_parts = [[ColumnBatch.from_numpy(ps, {"pk_": pk[c], "pv": c},
+                                           device="cuda")]
+                   for c in np.array_split(np.arange(len(pk)), 4)]
+    return (ScanExec("b", MemTableSource(bs, build_parts)),
+            ScanExec("p", MemTableSource(ps, probe_parts)))
+
+
+def phase_mesh_join_types() -> dict:
+    """Every join type of ``MeshJoinExec`` over ``MESH_SLOTS`` slots on
+    the card against the host ``JoinExec`` on the card, on the seeded
+    pair above, row for row (sorted), exactly."""
+    from ballista_tpu_torch.physical.join import JoinExec
+    from ballista_tpu_torch.physical.mesh_agg import MeshJoinExec
+
+    out = {}
+    cases = [(h, False, False) for h in
+             ("inner", "left", "semi", "anti", "full")]
+    cases += [("left", True, False), ("anti", True, True)]
+    for how, nulls, null_aware in cases:
+        build, probe = mesh_join_pair(nulls)
+        label = how + (" null keys" if nulls else "") + \
+            (" null-aware" if null_aware else "")
+        host = JoinExec(build, probe, [("bk", "pk_")], how,
+                        null_aware=null_aware, device="cuda")
+        mesh = MeshJoinExec(build, probe, [("bk", "pk_")], how, MESH_SLOTS,
+                            null_aware=null_aware, device="cuda")
+        t0 = time.perf_counter()
+        got = stacked_rows(list(mesh.execute(0)))
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        want = stacked_rows([b for p in range(
+            host.output_partitioning().num_partitions)
+            for b in host.execute(p)])
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"mesh {label} join: {got.shape} rows != "
+                                 f"host JoinExec's {want.shape}")
+        out[label] = {"rows": int(got.shape[0]), "mesh_s": mesh_s}
+    log(f"# mesh joins on the card, {MESH_SLOTS} slots, 1,000,000 probe "
+        f"rows: every type == JoinExec on the card: {json.dumps(out)}")
+    return out
+
+
+def mesh_binary(small_dir: str, want_q1) -> dict:
+    """``executor_main --local --num-devices 4`` on the card: q1 at
+    SF0.05 with a shuffled aggregate fuses (the embedded scheduler logs
+    the mesh fusion), the executor reports 4 slots, the result equals
+    the standalone one, and SIGTERM drains (exit 0)."""
+    import re
+    import signal
+
+    from ballista_tpu_torch.client import BallistaContext
+    from ballista_tpu_torch.testing.tpch_schema import register_tpch
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ballista_tpu_torch.distributed.executor_main",
+         "--local", "--num-devices", str(MESH_SLOTS), "--device", "cuda",
+         "--metrics-port", "-1"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        port = None
+        deadline = time.time() + 120
+        while port is None and time.time() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            lines.append(line)
+            m = re.search(r"embedded scheduler on localhost:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+        if port is None:
+            raise AssertionError("the executor binary printed no scheduler "
+                                 "port:\n" + "".join(lines))
+        ctx = BallistaContext.remote(
+            "localhost", port, **{"agg.partitions": str(MESH_SLOTS),
+                                  "mesh.devices": str(MESH_SLOTS)})
+        register_tpch(ctx, small_dir, tables=["lineitem"])
+        q1 = open(os.path.join(QUERY_DIR, "q1.sql")).read()
+        t1 = time.perf_counter()
+        got = ctx.sql(q1).to_pydict()
+        q1_s = time.perf_counter() - t1
+        assert_close_results("mesh binary q1 vs standalone", got, want_q1)
+        slots = ctx.sql("select num_devices from system.executors"
+                        ).to_pydict()["num_devices"]
+        if list(slots) != [MESH_SLOTS]:
+            raise AssertionError(f"the mesh binary reports {list(slots)}")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+        lines.append(out)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    text = "".join(lines)
+    if proc.returncode != 0 or "(graceful drain)" not in text:
+        raise AssertionError(f"the mesh binary did not drain on SIGTERM "
+                             f"(exit {proc.returncode}):\n{text[-3000:]}")
+    if f"into a {MESH_SLOTS}-device mesh shuffle-agg" not in text:
+        raise AssertionError("the mesh binary's scheduler fused nothing:\n"
+                             + text[-3000:])
+    secs = time.perf_counter() - t0
+    log(f"# mesh binary: executor_main --local --num-devices {MESH_SLOTS} "
+        f"fused q1 at sf{SMALL_SCALE:g} into a mesh stage, answered in "
+        f"{q1_s:.4f} s (== standalone), reported {MESH_SLOTS} slots, "
+        f"drained on SIGTERM (exit 0); {secs:.1f} s in all")
+    return {"q1_s": q1_s, "seconds": secs}
+
+
+def phase_mesh(card: str, data_dir: str, small_dir: str, unfused: dict,
+               want_small_q1: dict) -> tuple:
+    """Phase 17: the mesh on the card. A ``LocalCluster(2, 2,
+    num_devices=MESH_SLOTS)`` on cuda runs q1, q3 and q5 at SF1 (lineitem
+    and orders in 4 files) three times through mesh-fused stages: the
+    task plans hold ``MeshAggExec`` (q1) or ``MeshJoinExec`` (q3, q5);
+    results equal phase 14's unfused cluster and numpy; every kernel call
+    of the mesh q1 bit-equal to the plain version. Then the join types
+    against ``JoinExec``, and the executor binary with
+    ``--num-devices``."""
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.compile import compile_stats, governor
+    from ballista_tpu_torch.distributed.executor import LocalCluster
+    from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.physical.mesh_agg import MeshAggExec, MeshJoinExec
+
+    t_phase = time.perf_counter()
+    log(f"# phase 17 (mesh): {MESH_SLOTS} slots on one card; the "
+        f"cross-process path (NCCL between cards) is not run: this machine "
+        f"has one card, and NCCL refuses two ranks on one card")
+    split_dir = os.path.join("bench_data", f"sf{SCALE:g}_split")
+    for t in CLUSTER_SPLIT:  # phase 14's split files (kept while valid)
+        split_lines(os.path.join(data_dir, t, "partition0.tbl"),
+                    os.path.join(split_dir, t), CLUSTER_PARTS)
+    refs = {"q1": numpy_reference(data_dir)["q1"], "q3": numpy_q3(data_dir),
+            "q5": numpy_q5(data_dir)}
+    set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "8192"})
+    residency._reset_for_tests()
+    governor().clear()
+    cluster = LocalCluster(num_executors=2, concurrent_tasks=2,
+                           num_devices=MESH_SLOTS)
+    rows, launches = {}, {}
+    try:
+        ctx = cluster_context(cluster, data_dir, split_dir)
+        # explicit settings: the scheduler's cost feedback leaves them
+        # alone. A fused stage writes no shuffle bytes, which the
+        # feedback reads as a small shuffle and answers by raising the
+        # join threshold: a repeated q3/q5 would be re-planned onto
+        # merged (unfused) joins
+        ctx.settings.update({"agg.partitions": str(MESH_SLOTS),
+                             "join.partitioned.threshold": "1000000",
+                             "join.partitions": "8",
+                             "mesh.devices": str(MESH_SLOTS)})
+        for q in STAGED_QUERIES:
+            sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
+            row = {}
+            for label in ("first", "second", "third"):
+                st0 = compile_stats()
+                torch.cuda.reset_peak_memory_stats()
+                with KernelCallLog() as spy, TaskPlanLog() as plans:
+                    torch.cuda.synchronize()
+                    ds.launch_count = 0
+                    t0 = time.perf_counter()
+                    out = ctx.sql(sql).to_pydict()
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    n_launch = ds.launch_count
+                st1 = compile_stats()
+                check_observed(spy.calls, f"mesh {q} {label}")
+                want_cls = MeshAggExec if q == "q1" else MeshJoinExec
+                fused = [n for p in plans.plans
+                         for n in find_nodes(p, want_cls)]
+                if not fused or any(n.n_devices != MESH_SLOTS
+                                    for n in fused):
+                    raise AssertionError(f"mesh {q} {label}: no "
+                                         f"{want_cls.__name__} over "
+                                         f"{MESH_SLOTS} slots in the tasks")
+                check_plans_on_card(plans.plans, f"mesh {q} {label}")
+                assert_close_results(f"mesh {q} {label} vs phase 14's "
+                                     f"unfused cluster", out, unfused[q])
+                assert_close_results(f"mesh {q} {label} vs numpy", out,
+                                     refs[q])
+                shapes = {}
+                for c in spy.calls:
+                    key = f"N={c[0].shape[0]},K={len(c[2])},G={c[3]}"
+                    shapes[key] = shapes.get(key, 0) + 1
+                if q == "q1":
+                    # the final aggregate: one call per slot, at the
+                    # exchange's capacity (n slots x the slot capacity)
+                    finals = [c for c in spy.calls if c[0].shape[0]
+                              % MESH_SLOTS == 0 and c[0].shape[0]
+                              <= MESH_SLOTS * 4096]
+                    if len(finals) != MESH_SLOTS:
+                        raise AssertionError(
+                            f"mesh q1 {label}: {len(finals)} final-aggregate "
+                            f"kernel calls, expected one per slot ({shapes})")
+                    launches[label] = n_launch
+                row[label] = {
+                    "wall_s": wall, "launches": n_launch,
+                    "observed_calls": len(spy.calls), "call_shapes": shapes,
+                    "captures": st1["graph_captures"] - st0["graph_captures"],
+                    "replays": st1["graph_replays"] - st0["graph_replays"],
+                    "peak_mb": torch.cuda.max_memory_allocated() / 2 ** 20,
+                    "tasks": len(plans.plans), "mesh_nodes": len(fused)}
+                log(f"# mesh {q} {label}: {json.dumps(row[label])}; "
+                    f"== phase 14's unfused cluster == numpy")
+            rows[q] = row
+        sql5 = open(os.path.join(QUERY_DIR, "q5.sql")).read()
+        copies = profile_copies(lambda: ctx.sql(sql5).to_pydict(),
+                                "mesh-q5")
+        copies["busy_share"] = copies["busy_ms"] / 1e3 / copies["wall_s"]
+        log(f"# mesh q5 repeated, profiled: {json.dumps(copies)}")
+    finally:
+        cluster.shutdown()
+        set_ingest_env({})
+        residency._reset_for_tests()
+        governor().clear()
+    joins = phase_mesh_join_types()
+    binary = mesh_binary(small_dir, want_small_q1)
+    secs = time.perf_counter() - t_phase
+    log(f"# phase 17 (mesh) took {secs:.1f} s on {card}")
+    return {"rows": rows, "q5_profile": copies, "joins": joins,
+            "binary": binary, "seconds": secs}, launches
+
+
 # -- main -------------------------------------------------------------------
 
 
@@ -3460,14 +3767,17 @@ def main() -> int:
     small_secs, small_results = phase_all_queries(small_dir)
     parquet_row, parquet_launches = phase_parquet(
         data_dir, setup_parquet(data_dir), cpu_results)
-    cluster_row, cluster_launches = phase_cluster(data_dir, small_dir,
-                                                  small_results)
+    cluster_row, cluster_launches, unfused = phase_cluster(
+        data_dir, small_dir, small_results)
     small_want = {q: small_results[q] for q in SUBQUERY_QUERIES}
+    small_q1 = small_results["q1"]
     del small_results
     observability_row, observability_launches = phase_observability(
         card, data_dir, cpu_results["q1"])
     subquery_row, subquery_launches = phase_subqueries_prewarm_aot(
         card, data_dir, small_dir, small_want, cpu_results["q1"])
+    mesh_row, mesh_launches = phase_mesh(card, data_dir, small_dir, unfused,
+                                         small_q1)
     phase_capture_failure()
     if args.profile:
         for q in ("q1", "q3", "q5"):
@@ -3484,6 +3794,7 @@ def main() -> int:
     log(f"# cluster: {json.dumps(cluster_row)}")
     log(f"# observability: {json.dumps(observability_row)}")
     log(f"# subqueries, prewarm, AOT: {json.dumps(subquery_row)}")
+    log(f"# mesh: {json.dumps(mesh_row)}")
     kernels = [{
         "name": "dense_grouped_sums",
         "route": "cuda",
@@ -3521,6 +3832,8 @@ def main() -> int:
         "flight_q1_launches": observability_launches["flight_q1"],
         "prewarm_q1_launches": subquery_launches["prewarm_q1"],
         "server_subquery_launches": subquery_launches["server_subquery"],
+        "mesh_q1_launches": mesh_launches["first"],
+        "mesh_q1_final_launches": MESH_SLOTS,
         "q5_ms": q5_main["ms"],
         "q5_call_ms": q5_main["call_ms"],
         "q5_plain_ms": q5_main["plain_ms"],

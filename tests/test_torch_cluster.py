@@ -27,10 +27,11 @@ two tasks):
 - the modules copied verbatim equal the JAX package's text with the
   package name replaced (one, whose docstring drops history references,
   its code);
-- the binaries' options that need unported modules (mesh groups) exit
-  with ``NotImplementedError_`` naming their ROADMAP item, and those
-  that only configure them (``--num-devices``, the other mesh-group
-  flags) are not accepted; ``scheduler_main`` starts with etcd state
+- the executor binary's mesh-group options are accepted and checked:
+  ``--mesh-group-size`` above 1 without the group's coordinator and
+  channel, and the other mesh-group flags without a group, exit with
+  argparse's error naming them (a group itself runs in
+  ``test_torch_mesh_group_e2e.py``); ``scheduler_main`` starts with etcd state
   (``--state etcd:``, ``--etcd-urls``, over the in-process
   ``FakeEtcdServer``) and with ``--flight-port``, and drains on SIGTERM;
 - ``python -m ballista_tpu_torch.distributed.executor_main --local
@@ -384,12 +385,14 @@ def test_default_device_is_the_card(tmp_path):
 
 
 def test_scheduler_refuses_a_mesh_fleet():
+    """Not any more: a fleet reporting a mesh gets mesh-fused stages
+    (``test_torch_mesh_*.py``). Without a mesh the stages are returned
+    as they are, and a stage set with nothing to fuse passes through a
+    mesh width untouched instead of raising."""
     from ballista_tpu_torch.distributed.scheduler import _fuse_mesh_stages
-    from ballista_tpu_torch.errors import NotImplementedError_
 
     assert _fuse_mesh_stages(["a"], 1) == ["a"]
-    with pytest.raises(NotImplementedError_, match="item 10"):
-        _fuse_mesh_stages(["a"], 2)
+    assert _fuse_mesh_stages([], 2) == []
 
 
 def _replan_in_order(pkg: str, tpch_dir: str):
@@ -600,8 +603,9 @@ def test_executor_binary_answers_q1_and_drains(tpch_dir):
     assert proc.returncode == 0, text
 
 
-# the reference's options that only configure unported modules: the
-# port's binaries do not accept them (argparse exits 2)
+# the mesh-group options of the executor binary: accepted (no
+# "unrecognized arguments"), and a group misconfigured by them exits
+# with argparse's error (exit 2) before anything starts
 _MESH_GROUP_FLAGS = ["--num-devices", "4", "--mesh-group-rank", "1",
                      "--mesh-group-coordinator", "localhost:1",
                      "--mesh-group-channel", "localhost:2",
@@ -611,9 +615,12 @@ _MESH_GROUP_FLAGS = ["--num-devices", "4", "--mesh-group-rank", "1",
 @pytest.mark.parametrize("binary,args,expected", [
     ("executor_main", ["--local", "--device", "cpu",
                        "--mesh-group-size", "2"],
-     ["NotImplementedError_", "item 10"]),
+     ["--mesh-group-size 2 needs --mesh-group-coordinator and "
+      "--mesh-group-channel"]),
     ("executor_main", ["--local", "--device", "cpu"] + _MESH_GROUP_FLAGS,
-     ["unrecognized arguments: " + " ".join(_MESH_GROUP_FLAGS)]),
+     ["--mesh-group-rank, --mesh-group-coordinator, --mesh-group-channel, "
+      "--mesh-local-devices configure a mesh group: they need "
+      "--mesh-group-size above 1"]),
 ], ids=["mesh_group", "mesh_group_flags"])
 def test_unported_binary_options_raise(binary, args, expected):
     proc = subprocess.run(
@@ -622,6 +629,7 @@ def test_unported_binary_options_raise(binary, args, expected):
         cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
         text=True, timeout=120)
     assert proc.returncode != 0
+    assert "unrecognized arguments" not in proc.stderr, proc.stderr[-2000:]
     for text in expected:
         assert text in proc.stderr, proc.stderr[-2000:]
 

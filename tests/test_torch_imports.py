@@ -45,6 +45,12 @@ def test_scan_covers_the_port():
     rel = {os.path.relpath(f, ROOT) for f in files}
     assert "chip_smoke.py" in rel
     assert os.path.join("ballista_tpu_torch", "client.py") in rel
+    # the mesh slice's modules
+    for mod in ("parallel/__init__.py", "parallel/mesh.py",
+                "parallel/multihost.py", "kernels/mesh_shuffle.py",
+                "physical/mesh_agg.py", "physical/mesh_input.py",
+                "distributed/mesh_group.py"):
+        assert os.path.join("ballista_tpu_torch", *mod.split("/")) in rel
     assert len(files) > 25
 
 

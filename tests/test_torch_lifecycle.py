@@ -65,8 +65,13 @@ class _Gate:
             return real_scan(*a, **kw)
 
         def recording_init(handle, *a, **kw):
-            real_init(handle, *a, **kw)
+            # recorded BEFORE the producer is submitted: a scan can then
+            # reach the gate only after its handle is in the list, however
+            # the threads interleave (appending after the init let a
+            # loaded machine run the producer to the gate, and the test
+            # read the list, before the collect thread appended)
             self.handles.append(handle)
+            real_init(handle, *a, **kw)
 
         monkeypatch.setattr(native, "scan_file", gated_scan)
         monkeypatch.setattr(pipeline.PrefetchHandle, "__init__",

@@ -8,9 +8,10 @@ package's (``ballista_tpu/serde.py``).
   byte for byte; their bytes equal the JAX package's for the same query;
 - a plan the JAX package serialized deserializes in the port and runs
   equal to the port's own;
-- the kinds of later ROADMAP items (mesh, EXPLAIN) raise
-  ``SerdeError`` naming their item, and ``physical_from_proto`` and
-  ``source_from_proto`` take no plan without a device.
+- the mesh kinds (``mesh_agg``, ``mesh_join``) of the JAX package's
+  fused stages deserialize in the port and serialize back to its bytes,
+  and ``physical_from_proto`` and ``source_from_proto`` take no plan
+  without a device.
 
 Tolerance: exact everywhere (bytes, names, and ``assert_identical`` on
 results: the same program on the same inputs).
@@ -189,11 +190,40 @@ def test_reference_written_plan_runs_in_port(port, reference, q):
 @pytest.mark.parametrize("kind,item", [
     ("mesh_join", "item 10"), ("mesh_agg", "item 10"),
 ])
-def test_later_items_raise_serde_error(kind, item):
-    node = pb.PhysicalPlanNode()
-    getattr(node, kind).SetInParent()
-    with pytest.raises(SerdeError, match=item):
-        serde.physical_from_proto(node, device="cpu")
+def test_later_items_raise_serde_error(reference, kind, item):
+    """The mesh kinds no longer raise: ROADMAP queue 1 ``item`` ported
+    them. The JAX package's mesh-fused stages of q3 (``mesh_join``) and
+    q1 (``mesh_agg``), 8 devices, deserialize in the port on the device
+    asked for, hold the kind's operator, and serialize back to the JAX
+    package's bytes."""
+    from ballista_tpu.distributed.planner import DistributedPlanner
+    from ballista_tpu.distributed.scheduler import _fuse_mesh_stages
+    from ballista_tpu.physical.planner import PlannerOptions
+    from ballista_tpu_torch.physical.mesh_agg import (MeshAggExec,
+                                                      MeshJoinExec)
+
+    assert item == "item 10"
+    q = "q3" if kind == "mesh_join" else "q1"
+    phys = reference_plan(reference.sql(sql(q)).plan, PlannerOptions(
+        agg_partitions=4, join_partition_threshold=100))
+    stages = _fuse_mesh_stages(
+        DistributedPlanner().plan_query_stages("j", phys), 8)
+    want = MeshJoinExec if kind == "mesh_join" else MeshAggExec
+    found = []
+
+    def walk(n):
+        found.extend([n] if isinstance(n, want) else [])
+        for c in n.children():
+            walk(c)
+
+    for stage in stages:
+        wire = ref_serde.physical_to_proto(stage.child)
+        node = serde.physical_from_proto(wire, device="cpu")
+        walk(node)
+        assert serde.physical_to_proto(node).SerializeToString() == \
+            wire.SerializeToString()
+    assert found and all(n.n_devices == 8 and n.device.type == "cpu"
+                         for n in found)
 
 
 @pytest.mark.parametrize("analyze", [False, True],
