@@ -426,12 +426,18 @@ def process_table_cache() -> DeviceTableCache:
         return _cache
 
 
-def _reset_for_tests() -> None:
+def reset() -> None:
+    """Drop the process table cache, releasing every cached batch; the
+    next lookup builds a new cache and re-reads its budget from the
+    environment. For code that must measure a scan cold."""
     global _cache
     with _cache_lock:
         c, _cache = _cache, None
     if c is not None:
         c.invalidate()
+
+
+_reset_for_tests = reset  # the JAX package's name, which the tests use
 
 
 def serve_or_fill(key: Optional[tuple], produce, outcome_sink=None

@@ -66,11 +66,13 @@ the capture on a card, the eager call on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 import threading
 import time
 import warnings
 from collections import OrderedDict
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -284,6 +286,26 @@ def on_replay(fn: Callable[[], None]) -> None:
     cap.append(fn)
 
 
+@contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off for the ``with``. A CUDA
+    graph destroyed on the capturing thread while another graph is being
+    captured invalidates that capture (seen once on the H100: torch
+    warned that a graph was reset while a stream was capturing, and the
+    capture then failed), and the collector is what can run such a
+    destructor in the middle of a capture, for a dropped program whose
+    graph sits in a reference cycle. torch's own ``torch.cuda.graph``
+    collects before each capture; pausing the collector costs nothing
+    per capture."""
+    was_enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_enabled:
+            gc.enable()
+
+
 class _CaptureScope:
     """Sets this thread's capture flag (with its replay-hook list) and
     constants arena for the duration of a ``with``."""
@@ -427,7 +449,8 @@ class _GraphProgram:
         # one synchronize (the static inputs are filled).
         torch.cuda.synchronize(device)
         try:
-            with _CaptureScope(arena, hooks), torch.cuda.stream(side):
+            with _collector_paused(), _CaptureScope(arena, hooks), \
+                    torch.cuda.stream(side):
                 graph.capture_begin(pool=pool,
                                     capture_error_mode="thread_local")
                 try:

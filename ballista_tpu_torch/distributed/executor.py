@@ -944,5 +944,10 @@ class LocalCluster:
     def shutdown(self):
         for e in self.executors:
             e.stop()
+        # planning that is under way ends first: it would otherwise go
+        # on writing into the (possibly durable) state after shutdown
+        if not self.service.join_planning():
+            log.warning("LocalCluster.shutdown: planning threads still "
+                        "running after 30 s")
         self.service.close_health()
         self.server.stop(grace=None)

@@ -389,6 +389,10 @@ class SchedulerService:
             lambda job_id, wait: self._ledger_stamp(
                 job_id, "queue_wait", wait))
         self.tasks_dispatched = 0
+        # live planning threads (_launch_job): join_planning waits for
+        # them, so a stopped scheduler writes nothing more to its state
+        self._planning_threads: set = set()
+        self._planning_lock = threading.Lock()
         if metrics_port is None:
             metrics_port = metrics_port_from_env(-1)
         self.health = maybe_start_health_server(
@@ -927,11 +931,42 @@ class SchedulerService:
     def _launch_job(self, args):
         """Start the background planning thread for an ADMITTED job
         (straight from the gate, or later from the admission pump)."""
-        t = threading.Thread(
-            target=self._plan_job, args=args, daemon=True,
-            name=f"plan-{args[0]}",
-        )
-        t.start()
+        def plan():
+            try:
+                self._plan_job(*args)
+            finally:
+                with self._planning_lock:
+                    self._planning_threads.discard(t)
+
+        t = threading.Thread(target=plan, daemon=True,
+                             name=f"plan-{args[0]}")
+        with self._planning_lock:
+            self._planning_threads.add(t)
+        try:
+            t.start()
+        except BaseException:
+            with self._planning_lock:
+                self._planning_threads.discard(t)
+            raise
+
+    def join_planning(self, timeout: float = 30.0) -> bool:
+        """Wait up to ``timeout`` seconds for every planning thread to
+        end; True when none is left. A planning thread writes stage and
+        task rows, the ready queue and the journal's planned marker: a
+        scheduler that stops without this leaves it writing into a
+        durable backend that a restarted scheduler may already be
+        recovering from (``LocalCluster.shutdown`` calls it)."""
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._planning_lock:
+                live = list(self._planning_threads)
+            if not live:
+                return True
+            for t in live:
+                t.join(max(deadline - time.monotonic(), 0.0))
+            if time.monotonic() >= deadline:
+                with self._planning_lock:
+                    return not self._planning_threads
 
     def _shed_queued_job(self, decision):
         """Admission queue timeout: the job was accepted (status queued,

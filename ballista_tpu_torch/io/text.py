@@ -273,14 +273,35 @@ class DelimitedSource(TableSource):
     def _scan_direct(self, partition: int,
                      projection: Optional[Sequence[str]] = None):
         """The uncached parse + H2D path (table cache misses land here)."""
-        from . import native
-
         names = list(projection if projection is not None
                      else self._schema.names())
         sub_schema = self._schema.project(names)
+        streamed = self._streams(partition)
+        emitted = False
+        for n, arrays, dicts, valids in self.parsed(partition, names):
+            # a streamed range's tail batch is emitted partial, on the
+            # ladder
+            yield from self._emit_batches(sub_schema, n, arrays, dicts,
+                                          valids, force_emit=not streamed)
+            emitted = True
+        if not emitted:  # empty file: one empty batch keeps contracts
+            utf8 = [m for m in names
+                    if self._schema.field(m).dtype.kind == "utf8"]
+            yield from self._emit_batches(sub_schema, 0, {
+                m: np.zeros(0, self._schema.field(m).dtype.device_dtype())
+                for m in names}, self._table_dictionaries(utf8), None)
+
+    def parsed(self, partition: int, names: Sequence[str]):
+        """The host side of one partition's scan: ``(rows, physical
+        arrays, dictionaries, validity masks)`` of ``names``, with utf8
+        codes on the table's dictionaries. One tuple for the whole file,
+        or, for a file over ``STREAM_CHUNK_BYTES``, one for each byte
+        range that holds rows (``_parsed_ranges``)."""
+        from . import native
+
+        names = list(names)
         if self._streams(partition):
-            yield from self._scan_native_streaming(partition, names,
-                                                   sub_schema)
+            yield from self._parsed_ranges(partition, names)
             return
         with phase("parse", path=self._files[partition]):
             n, arrays, fdicts, valids = native.scan_file(
@@ -306,13 +327,13 @@ class DelimitedSource(TableSource):
                                                               fvals):
                     arrays[m] = d.positions_of(fvals)[arrays[m]].astype(
                         np.int32)
-        yield from self._emit_batches(sub_schema, n, arrays, dicts, valids)
+        yield n, arrays, dicts, valids
 
-    def _scan_native_streaming(self, partition: int, names, sub_schema):
+    def _parsed_ranges(self, partition: int, names):
         """Parse one partition file in byte-range chunks (adjacent ranges
-        partition the rows exactly), remap each range's utf8 codes onto
-        the table-wide dictionaries (one shared pre-pass) and emit each
-        range's batches as soon as it is parsed. Peak RAM is
+        partition the rows exactly) and remap each range's utf8 codes onto
+        the table-wide dictionaries (one shared pre-pass), yielding each
+        range as soon as it is parsed. Peak RAM is
         O(STREAM_CHUNK_BYTES)."""
         from . import native
 
@@ -324,8 +345,8 @@ class DelimitedSource(TableSource):
         with phase("parse", path=path, prepass="dicts"):
             dicts = self._table_dictionaries(utf8)
         off = 0
-        emitted = False
         while off < size:
+            check_cancel()  # a cancelled collect stops at a range boundary
             with phase("parse", path=path, offset=off):
                 n, arrays, fdicts, valids = native.scan_file(
                     path, self._schema, names, self._delim, self._header,
@@ -336,14 +357,7 @@ class DelimitedSource(TableSource):
                 for m in utf8:
                     arrays[m] = dicts[m].positions_of(
                         fdicts[m])[arrays[m]].astype(np.int32)
-            # a range's tail batch is emitted partial, on the ladder
-            yield from self._emit_batches(sub_schema, n, arrays, dicts,
-                                          valids, force_emit=False)
-            emitted = True
-        if not emitted:  # empty file: one empty batch keeps contracts
-            yield from self._emit_batches(sub_schema, 0, {
-                m: np.zeros(0, self._schema.field(m).dtype.device_dtype())
-                for m in names}, dicts, None)
+            yield n, arrays, dicts, valids
 
     def _emit_batches(self, sub_schema, n, arrays, dicts, valids=None,
                       force_emit=True):

@@ -212,10 +212,24 @@ non-zero exit):
    and ``executor_main --local --num-devices 4`` fusing q1 at SF0.05
    (equal to the standalone result, 4 slots reported, drained on
    SIGTERM). The cross-process path is not run: one card;
-18. in a process of its own, a governed program that cannot be captured
+18. the measurement entry points: (a) ``ballista_tpu_torch.
+   bench`` in this process at SF1 with 3 runs, from a cleared governor,
+   under an observer that holds every kernel call it makes against the
+   plain version as the call happens, bit for bit; its q1 equal to
+   phase 4's numpy result, every field of the line present and its
+   ``value`` above 0; (b) ``python -m ballista_tpu_torch.bench --scale
+   0.05 --runs 1`` as a child process on the card: its last line parses
+   and names the card; (c) the TPC-H CLI's ``benchmark``, q1 and q5 at
+   SF1 standalone (equal to numpy and to the port on the CPU) and q1 at
+   SF0.05 through ``--host``/``--port`` against a ``LocalCluster`` on the
+   card (equal to phase 12); (d) ``bench_serving``'s three phases at
+   SF0.05, 4 sessions of 6 queries (no serving error, a recovered job, an
+   autoscaling event); (e) the scaling curves over 1, 2 and 4 slots on
+   the card (each strong curve's results equal at every slot count);
+19. in a process of its own, a governed program that cannot be captured
    (it reads a device value on the host) must raise ``CaptureError``
    rather than run eagerly;
-19. the kernel list, as one JSON line; its times, replicas and VEC are
+20. the kernel list, as one JSON line; its times, replicas and VEC are
     those on q1's main-path inputs, with q5's launches and times beside
     them, and the launches of q5 through the adapted join, of q1 over
     the streamed lineitem, of q1 and q5 from Parquet, of q1 and q5
@@ -223,8 +237,10 @@ non-zero exit):
     ``EXPLAIN ANALYZE`` q1 and q5 standalone and q1 through the cluster,
     of q1 sent over Arrow Flight, of the first q1 with the prewarm pass
     on and off (per fresh process), inside each server-planned
-    subquery, and of the first mesh q1 (``mesh_q1_launches``; 4 of them
-    its final aggregate's, one per slot).
+    subquery, of the first mesh q1 (``mesh_q1_launches``; 4 of them
+    its final aggregate's, one per slot), of the whole bench run of
+    phase 18 (``bench_launches``) and of one warm q1 inside it
+    (``bench_q1_launches``).
 
 It uses one card: the first that ``CUDA_VISIBLE_DEVICES`` lists, else
 card 0. The last line of standard output is ``{"ok": true, "device":
@@ -804,7 +820,7 @@ def phase_queries(data_dir: str):
         assert_equal_results(f"{q} cuda vs numpy", got, ref[q])
         log(f"# {q}: cuda == port on cpu == numpy group-by "
             f"({len(next(iter(got.values())))} rows)")
-    return timings, launches, sorted(set(spy_shapes)), main_path
+    return timings, launches, sorted(set(spy_shapes)), main_path, ref["q1"]
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -1452,7 +1468,7 @@ def phase_ingest(data_dir: str, want: dict):
     try:
         for config, env in INGEST_CONFIGS:
             set_ingest_env(env)
-            residency._reset_for_tests()
+            residency.reset()
             governor().clear()
             snap = PinnedSnapshot()
             ctx = BallistaContext.standalone()
@@ -1509,7 +1525,7 @@ def phase_ingest(data_dir: str, want: dict):
                 del other
         # q1 at a 1 MB budget: no table fits, every collect re-ingests
         set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "1"})
-        residency._reset_for_tests()
+        residency.reset()
         snap = PinnedSnapshot()
         ctx = BallistaContext.standalone()
         register_tpch(ctx, data_dir)
@@ -1520,11 +1536,11 @@ def phase_ingest(data_dir: str, want: dict):
                 raise AssertionError(f"q1 at 1 MB must re-ingest: {r}")
         del df, ctx
         set_ingest_env({})
-        residency._reset_for_tests()
+        residency.reset()
         capture = upload_under_capture(data_dir, sqls["q1"], want["q1"])
     finally:
         set_ingest_env({})
-    residency._reset_for_tests()
+    residency.reset()
     governor().clear()
     log(f"# ingest host: {os.cpu_count()} CPUs")
     return rows, capture
@@ -1677,7 +1693,7 @@ def phase_adaptive(data_dir: str, want: dict):
     try:
         for setting in ("on", "off"):
             for q in ADAPTIVE_QUERIES:
-                residency._reset_for_tests()
+                residency.reset()
                 governor().clear()
                 gc.collect()
                 settings = {"adaptive.enabled": setting,
@@ -1767,7 +1783,7 @@ def phase_adaptive(data_dir: str, want: dict):
                 del df, ctx
     finally:
         set_ingest_env({})
-    residency._reset_for_tests()
+    residency.reset()
     governor().clear()
     return rows, q5_launches
 
@@ -1802,7 +1818,7 @@ def phase_streaming(data_dir: str, want_q1):
     try:
         for mode, chunk in (("whole file", saved), ("streamed", STREAM_CHUNK)):
             text.STREAM_CHUNK_BYTES = chunk
-            residency._reset_for_tests()
+            residency.reset()
             governor().clear()
             ctx = BallistaContext.standalone()
             register_tpch(ctx, data_dir, tables=["lineitem"])
@@ -1848,7 +1864,7 @@ def phase_streaming(data_dir: str, want_q1):
             del df, ctx
     finally:
         text.STREAM_CHUNK_BYTES = saved
-    residency._reset_for_tests()
+    residency.reset()
     governor().clear()
     return rows, launches
 
@@ -2147,7 +2163,7 @@ def phase_parquet(data_dir: str, pq_dir: str, want_cpu_tbl: dict):
     try:
         for q in STAGED_QUERIES:
             sql = open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
-            residency._reset_for_tests()
+            residency.reset()
             governor().clear()
             df = gpu.sql(sql)
             parts = None
@@ -2208,7 +2224,7 @@ def phase_parquet(data_dir: str, pq_dir: str, want_cpu_tbl: dict):
                 f"cpu ({len(next(iter(cold.values())))} rows)")
     finally:
         set_ingest_env({})
-        residency._reset_for_tests()
+        residency.reset()
         governor().clear()
     secs = time.perf_counter() - t_phase
     log(f"# phase 13 (parquet) took {secs:.1f} s")
@@ -2497,7 +2513,7 @@ def phase_cluster(data_dir: str, small_dir: str, small_want: dict):
     log(f"# cluster set-up: {', '.join(CLUSTER_SPLIT)} split into "
         f"{CLUSTER_PARTS} files each in {time.perf_counter() - t0:.1f} s")
     set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "8192"})
-    residency._reset_for_tests()
+    residency.reset()
     governor().clear()
     standalone = BallistaContext.standalone()
     register_tpch(standalone, data_dir)
@@ -2618,7 +2634,7 @@ def phase_cluster(data_dir: str, small_dir: str, small_want: dict):
     finally:
         cluster.shutdown()
         set_ingest_env({})
-        residency._reset_for_tests()
+        residency.reset()
         governor().clear()
     binary = phase_cluster_binary(small_dir, small_want["q1"])
     secs = time.perf_counter() - t_phase
@@ -2681,7 +2697,7 @@ def first_collect_child(data_dir: str) -> int:
     runs = {}
     for label in ("process_first", "warm", "cold_again"):
         if label == "cold_again":
-            residency._reset_for_tests()
+            residency.reset()
             governor().clear()
         st0 = compile_stats()
         t0 = time.perf_counter()
@@ -2973,7 +2989,7 @@ def phase_progress_capture(data_dir: str) -> dict:
     runs = {}
     try:
         for label in ("plain", "sampled"):
-            residency._reset_for_tests()
+            residency.reset()
             governor().clear()
             ctx = BallistaContext.standalone()
             register_tpch(ctx, data_dir)
@@ -3597,7 +3613,7 @@ def phase_mesh(card: str, data_dir: str, small_dir: str, unfused: dict,
     refs = {"q1": numpy_reference(data_dir)["q1"], "q3": numpy_q3(data_dir),
             "q5": numpy_q5(data_dir)}
     set_ingest_env({"BALLISTA_TABLE_CACHE_BUDGET_MB": "8192"})
-    residency._reset_for_tests()
+    residency.reset()
     governor().clear()
     cluster = LocalCluster(num_executors=2, concurrent_tasks=2,
                            num_devices=MESH_SLOTS)
@@ -3675,7 +3691,7 @@ def phase_mesh(card: str, data_dir: str, small_dir: str, unfused: dict,
     finally:
         cluster.shutdown()
         set_ingest_env({})
-        residency._reset_for_tests()
+        residency.reset()
         governor().clear()
     joins = phase_mesh_join_types()
     binary = mesh_binary(small_dir, want_small_q1)
@@ -3683,6 +3699,329 @@ def phase_mesh(card: str, data_dir: str, small_dir: str, unfused: dict,
     log(f"# phase 17 (mesh) took {secs:.1f} s on {card}")
     return {"rows": rows, "q5_profile": copies, "joins": joins,
             "binary": binary, "seconds": secs}, launches
+
+
+# -- phase 18 ---------------------------------------------------------------
+
+
+class KernelCallCheck:
+    """Holds each executed call of ``dense_grouped_sums`` against the
+    plain version on that call's inputs while it is entered, as the call
+    happens (``dense_sums.observe``; graph replays included), keeping no
+    copies: a whole bench run makes hundreds of calls."""
+
+    def __init__(self):
+        self.calls = 0
+        self.failures = []
+        self._lock = threading.Lock()
+
+    def __call__(self, gids, live, values, num_groups, sums, counts, first):
+        from ballista_tpu_torch.kernels import dense_sums as ds
+
+        ref_sums, ref_counts, ref_first = ds.dense_grouped_sums_reference(
+            gids, live, values, num_groups)
+        got = torch.stack(list(sums) + [counts, first])
+        want = torch.stack(list(ref_sums) + [ref_counts, ref_first])
+        same = torch.equal(got, want)
+        with self._lock:
+            self.calls += 1
+            if not same:
+                self.failures.append((int(gids.shape[0]), len(values),
+                                      num_groups))
+
+    def __enter__(self):
+        from ballista_tpu_torch.kernels import dense_sums as ds
+
+        self._observing = ds.observe(self)
+        self._observing.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._observing.__exit__(*exc)
+
+    def check(self, label: str) -> None:
+        if self.failures:
+            raise AssertionError(
+                f"{label}: {len(self.failures)} of {self.calls} kernel calls "
+                f"differ from the plain version (N, K, G: "
+                f"{self.failures[:4]})")
+        if self.calls == 0:
+            raise AssertionError(f"{label}: no kernel call was observed")
+        log(f"# {label}: all {self.calls} observed kernel calls bit-equal "
+            f"to the plain version")
+
+
+# the bench line's fields that phase 18 requires
+BENCH_FIELDS = (
+    "metric", "value", "unit", "vs_baseline", "device", "power_limit_w",
+    "parse_seconds", "h2d_seconds", "execute_seconds", "lineitem_rows",
+    "cold_seconds", "cold_rows_per_sec", "first_run_seconds",
+    "warm_seconds", "q5_first_seconds", "q5_warm_seconds",
+    "compile_count", "compile_seconds", "persistent_cache_hit",
+    "jit_programs", "aot_loads", "peak_device_bytes", "spill_bytes",
+    "shuffle_peak_inflight_mb", "table_cache_hits", "result_cache_hits",
+    "donated_buffers", "cache_q1_identical", "result_cache_identical",
+    "cache_budget_identical", "spill_q5_seconds",
+    "kernel_launches_per_warm_q1", "stages",
+)
+STAGE_FIELDS = ("parse_s", "parse_mb_per_s", "h2d_s", "rows", "kernel_s",
+                "kernel_rows_per_s", "kernel_aot_compile_s",
+                "kernel_bytes_accessed", "kernel_gb_per_s",
+                "kernel_hbm_share", "peak_hbm_bytes_per_s_assumed")
+SERVING_SESSIONS, SERVING_QUERIES = 4, 6
+# bench_serving's QUERY_MIX (its module is imported where it runs)
+SERVING_MIX = ("q1", "q3", "q5", "q12", "q16", "q18")
+
+
+def bench_in_process(data_dir: str, numpy_q1) -> tuple:
+    """(a): the bench at SF1 in this process, under ``KernelCallCheck``;
+    returns (its line, launches during the run)."""
+    from ballista_tpu_torch import bench
+    from ballista_tpu_torch.compile import governor
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    governor().clear()  # every program captured anew, observed
+    result = {}
+    t0 = time.perf_counter()
+    with KernelCallCheck() as check:
+        torch.cuda.synchronize()
+        ds.launch_count = 0
+        q1 = bench.run_bench(data_dir, 3, torch.device("cuda"), result,
+                             scale=SCALE, trace=False)
+        torch.cuda.synchronize()
+        launches = ds.launch_count
+    secs = time.perf_counter() - t0
+    check.check("bench (in process)")
+    assert_equal_results("bench q1 vs numpy", q1, numpy_q1)
+    missing = [k for k in BENCH_FIELDS if k not in result]
+    missing += [f"stages.{k}" for k in STAGE_FIELDS
+                if k not in result.get("stages", {})]
+    if missing or "partial" in result:
+        raise AssertionError(f"bench line lacks {missing}: {result}")
+    if not result["value"] > 0 or result["device"] != \
+            torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench line: value {result['value']}, "
+                             f"device {result['device']}")
+    if result["kernel_launches_per_warm_q1"] < 2 or launches < 2:
+        raise AssertionError(
+            f"bench: {result['kernel_launches_per_warm_q1']} launches in a "
+            f"warm q1, {launches} in the run")
+    log(f"# bench line (SF1, 3 runs, {secs:.1f} s, {launches} kernel "
+        f"launches): {json.dumps(result)}")
+    return result, launches
+
+
+def q1_trace_child(data_dir: str) -> int:
+    """Run in a fresh process (``--q1-trace``): the bench's q1 partial
+    program with nothing watching its kernel calls, its replay timed and
+    one replay under ``torch.profiler`` split into the dense kernel, the
+    other kernels, memcpy and memset (``bench.replay_trace``), printed
+    as one ``Q1_TRACE`` JSON line."""
+    from ballista_tpu_torch import bench
+
+    stages = bench.instrument_q1(data_dir, 3, torch.device("cuda"),
+                                 trace=True)
+    print("Q1_TRACE " + json.dumps(stages), flush=True)
+    return 0
+
+
+def q1_replay_trace(data_dir: str) -> dict:
+    """``q1_trace_child`` in a process of its own: in this long process,
+    after the earlier phases' profiler windows, the profiler recorded
+    only part of a replay's kernels (0.24 of 1.11 busy ms)."""
+    proc = subprocess.run([sys.executable, __file__, "--q1-trace", data_dir],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"q1 trace child failed ({proc.returncode}):"
+                             f"\n{proc.stderr[-2000:]}")
+    line = next(ln for ln in proc.stdout.splitlines()
+                if ln.startswith("Q1_TRACE "))
+    stages = json.loads(line[len("Q1_TRACE "):])
+    tr = stages["kernel_trace"]
+    if not tr["dense_grouped_sums_ms"] > 0:
+        raise AssertionError(f"q1 replay trace shows no dense_grouped_sums "
+                             f"kernel: {tr}")
+    log(f"# q1 partial program, one replay traced (SF1, own process): "
+        f"kernel_s {stages['kernel_s']}, {json.dumps(tr)}")
+    return {"kernel_s": stages["kernel_s"],
+            "kernel_bytes_accessed": stages["kernel_bytes_accessed"],
+            **{k: v for k, v in tr.items() if k != "top_other_kernels"}}
+
+
+def bench_cli() -> dict:
+    """(b): ``python -m ballista_tpu_torch.bench --scale 0.05 --runs 1``
+    as a child process; its last line must parse and name the card."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "ballista_tpu_torch.bench", "--scale",
+         f"{SMALL_SCALE:g}", "--runs", "1", "--data",
+         os.path.join("bench_data", "bench_cli")],
+        capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"bench CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    if line.get("device") != torch.cuda.get_device_name(0) or \
+            "partial" in line or not line.get("value", 0) > 0:
+        raise AssertionError(f"bench CLI line: {line}")
+    log(f"# bench CLI (SF{SMALL_SCALE:g}, 1 run, {secs:.1f} s with the "
+        f"process): {json.dumps(line)}")
+    return {"seconds": secs, "value": line["value"],
+            "warm_seconds": line["warm_seconds"]}
+
+
+def tpch_cli(data_dir: str, small_dir: str, numpy_q1, cpu_q5,
+             small_q1) -> dict:
+    """(c): the TPC-H CLI's ``benchmark``: q1 and q5 at SF1 standalone,
+    q1 at SF0.05 through ``--host``/``--port``, under ``KernelCallCheck``
+    (the cluster's executors run in this process). Returns (the walls,
+    kernel launches in the leg)."""
+    from ballista_tpu_torch.benchmarks import tpch
+    from ballista_tpu_torch.distributed.executor import LocalCluster
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    out = {}
+    with KernelCallCheck() as check:
+        torch.cuda.synchronize()
+        ds.launch_count = 0
+        for q, want in (("1", numpy_q1), ("5", cpu_q5)):
+            args = tpch.build_parser().parse_args(
+                ["benchmark", "--path", data_dir, "--query", q,
+                 "--iterations", "2"])
+            ms, got = tpch.run_benchmark(args)
+            assert_equal_results(f"tpch CLI q{q}", got, want)
+            out[f"q{q}_ms"] = ms
+        cluster = LocalCluster(num_executors=2, concurrent_tasks=2)
+        try:
+            args = tpch.build_parser().parse_args(
+                ["benchmark", "--path", small_dir, "--query", "1",
+                 "--iterations", "2", "--host", "localhost", "--port",
+                 str(cluster.port)])
+            ms, got = tpch.run_benchmark(args)
+        finally:
+            cluster.shutdown()
+        torch.cuda.synchronize()
+        launches = ds.launch_count
+    check.check("tpch CLI")
+    assert_close_results("tpch CLI q1 remote", got, small_q1)
+    out["remote_q1_ms"] = ms
+    out["launches"] = launches
+    log(f"# tpch CLI: {json.dumps(out)} (ms a run)")
+    return out, launches
+
+
+def serving_phases(small_dir: str, small_want) -> tuple:
+    """(d): ``bench_serving``'s three phases on the card, under
+    ``KernelCallCheck`` (the clusters' executors run in this process);
+    every query result of the serving and autoscale phases is held
+    against phase 12's standalone result of that query at SF0.05.
+    Returns (the row, kernel launches in the leg)."""
+    from ballista_tpu_torch import bench_serving
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    out, results = {}, []
+    lock = threading.Lock()
+
+    def keep(q, rows):
+        with lock:
+            results.append((q, rows))
+
+    with KernelCallCheck() as check:
+        torch.cuda.synchronize()
+        ds.launch_count = 0
+        for phase in ("serving", "restart", "autoscale"):
+            t0 = time.perf_counter()
+            line = bench_serving.run_phase(
+                phase, small_dir, torch.device("cuda"),
+                sessions=SERVING_SESSIONS,
+                queries_per_session=SERVING_QUERIES, on_result=keep)
+            secs = time.perf_counter() - t0
+            log(f"# bench_serving {phase} ({secs:.1f} s): "
+                f"{json.dumps(line)}")
+            out[phase] = line
+        torch.cuda.synchronize()
+        launches = ds.launch_count
+    check.check("bench_serving")
+    for i, (q, rows) in enumerate(results):
+        assert_close_results(f"bench_serving result {i} ({q}) vs phase "
+                             f"12", rows, small_want[q])
+    s, r, a = out["serving"], out["restart"], out["autoscale"]
+    # the storm's and the burst's queries and both warm passes
+    expect = (s["serving_completed"] + a["autoscale_completed"]
+              + 2 * len(bench_serving.QUERY_MIX))
+    if len(results) != expect:
+        raise AssertionError(f"bench_serving: {len(results)} results "
+                             f"compared, {expect} queries completed")
+    log(f"# bench_serving: all {len(results)} query results == phase 12's "
+        f"standalone results; {launches} kernel launches")
+    if s["serving_errors"] != 0 or s["serving_completed"] == 0:
+        raise AssertionError(f"serving: {s.get('serving_error_sample')}")
+    if r["recovered_jobs"] < 1 or r["recovery_errors"] != 0:
+        raise AssertionError(f"restart recovered no job: {r}")
+    if a["autoscale_events"] < 1 or a["autoscale_errors"] != 0:
+        raise AssertionError(f"autoscale: {a}")
+    return {"serving_qps": s["value"],
+            "serving_p50_seconds": s["serving_p50_seconds"],
+            "serving_p99_seconds": s["serving_p99_seconds"],
+            "serving_completed": s["serving_completed"],
+            "recovery_seconds": r["recovery_seconds"],
+            "recovered_jobs": r["recovered_jobs"],
+            "autoscale_events": a["autoscale_events"],
+            "autoscale_p99_seconds": a["autoscale_p99_seconds"],
+            "results_compared": len(results),
+            "launches": launches}, launches
+
+
+def scaling_curves() -> tuple:
+    """(e): the slot curves over 1/2/4 slots under ``KernelCallCheck``
+    (``mesh_agg_dict``'s partial and final sums are the kernel; every
+    point is held against numpy in ``run_curves``). Returns (the curves'
+    walls, kernel launches in the leg)."""
+    from ballista_tpu_torch.benchmarks import scaling
+    from ballista_tpu_torch.kernels import dense_sums as ds
+
+    t0 = time.perf_counter()
+    with KernelCallCheck() as check:
+        torch.cuda.synchronize()
+        ds.launch_count = 0
+        curves = scaling.run_curves([1, 2, 4], 262_144, 1_048_576, 3,
+                                    torch.device("cuda"))
+        torch.cuda.synchronize()
+        launches = ds.launch_count
+    check.check("scaling")
+    log(f"# scaling on the card ({time.perf_counter() - t0:.1f} s, "
+        f"{launches} kernel launches; every point == numpy): "
+        f"{json.dumps(curves)}")
+    return {k: [(p["n_devices"], p["warm_s"], p["efficiency"]) for p in v]
+            for k, v in curves["curves"].items()}, launches
+
+
+def phase_entry_points(data_dir: str, small_dir: str, numpy_q1, cpu_q5,
+                       small_q1, small_want) -> tuple:
+    """Phase 18: the port's measurement entry points on the card. Each
+    leg that runs queries in this process runs under ``KernelCallCheck``
+    with the launch count set to 0 just before it; ``small_want`` holds
+    phase 12's standalone SF0.05 results of the serving mix."""
+    from ballista_tpu_torch.cache import residency
+    from ballista_tpu_torch.compile import governor
+
+    t_phase = time.perf_counter()
+    line, launches = bench_in_process(data_dir, numpy_q1)
+    row = {"bench": line, "q1_replay_trace": q1_replay_trace(data_dir),
+           "bench_cli": bench_cli()}
+    row["tpch_cli"], tpch_launches = tpch_cli(data_dir, small_dir,
+                                              numpy_q1, cpu_q5, small_q1)
+    row["serving"], serving_launches = serving_phases(small_dir, small_want)
+    residency.reset()
+    governor().clear()
+    row["scaling"], scaling_launches = scaling_curves()
+    row["seconds"] = time.perf_counter() - t_phase
+    log(f"# phase 18 (entry points) took {row['seconds']:.1f} s")
+    return row, {"bench": launches,
+                 "bench_q1": line["kernel_launches_per_warm_q1"],
+                 "tpch_cli": tpch_launches, "serving": serving_launches,
+                 "scaling": scaling_launches}
 
 
 # -- main -------------------------------------------------------------------
@@ -3730,6 +4069,9 @@ def main() -> int:
     ap.add_argument("--prewarm-child", metavar="DATA_DIR",
                     help="only run phase 16's first q1 and q6 (in the "
                          "fresh processes phase 16 starts)")
+    ap.add_argument("--q1-trace", metavar="DATA_DIR",
+                    help="only trace one replay of the bench's q1 program "
+                         "(in the fresh process phase 18 starts)")
     args = ap.parse_args()
     card_id = use_one_card()
     if not torch.cuda.is_available():
@@ -3742,13 +4084,15 @@ def main() -> int:
         return first_collect_child(args.first_collect)
     if args.prewarm_child:
         return prewarm_child(args.prewarm_child)
+    if args.q1_trace:
+        return q1_trace_child(args.q1_trace)
     t_start = time.perf_counter()
     card = phase_card(card_id)
     phase_build()
     data_dir = setup_data()
     small_dir = setup_data(SMALL_SCALE, num_parts=2)
     q1_shape = phase_kernel_check(lineitem_rows(data_dir))
-    timings, launches, shapes, main_path = phase_queries(data_dir)
+    timings, launches, shapes, main_path, numpy_q1 = phase_queries(data_dir)
     if main_path["n"] != q1_shape["n"]:
         raise AssertionError(f"phase 3 timed N={q1_shape['n']} but q1's "
                              f"partial aggregate ran at N={main_path['n']}")
@@ -3771,6 +4115,7 @@ def main() -> int:
         data_dir, small_dir, small_results)
     small_want = {q: small_results[q] for q in SUBQUERY_QUERIES}
     small_q1 = small_results["q1"]
+    serving_want = {q: small_results[q] for q in SERVING_MIX}
     del small_results
     observability_row, observability_launches = phase_observability(
         card, data_dir, cpu_results["q1"])
@@ -3778,6 +4123,9 @@ def main() -> int:
         card, data_dir, small_dir, small_want, cpu_results["q1"])
     mesh_row, mesh_launches = phase_mesh(card, data_dir, small_dir, unfused,
                                          small_q1)
+    entry_row, entry_launches = phase_entry_points(
+        data_dir, small_dir, numpy_q1, cpu_results["q5"], small_q1,
+        serving_want)
     phase_capture_failure()
     if args.profile:
         for q in ("q1", "q3", "q5"):
@@ -3795,6 +4143,7 @@ def main() -> int:
     log(f"# observability: {json.dumps(observability_row)}")
     log(f"# subqueries, prewarm, AOT: {json.dumps(subquery_row)}")
     log(f"# mesh: {json.dumps(mesh_row)}")
+    log(f"# entry points: {json.dumps(entry_row)}")
     kernels = [{
         "name": "dense_grouped_sums",
         "route": "cuda",
@@ -3834,6 +4183,11 @@ def main() -> int:
         "server_subquery_launches": subquery_launches["server_subquery"],
         "mesh_q1_launches": mesh_launches["first"],
         "mesh_q1_final_launches": MESH_SLOTS,
+        "bench_launches": entry_launches["bench"],
+        "bench_q1_launches": entry_launches["bench_q1"],
+        "tpch_cli_launches": entry_launches["tpch_cli"],
+        "serving_launches": entry_launches["serving"],
+        "scaling_launches": entry_launches["scaling"],
         "q5_ms": q5_main["ms"],
         "q5_call_ms": q5_main["call_ms"],
         "q5_plain_ms": q5_main["plain_ms"],

@@ -68,3 +68,40 @@ def test_scanner_flags_forbidden_names():
     assert not _forbidden("ballista_tpu_torch.columnar")
     assert not _forbidden("benchmarks.tpch.datagen")
     assert not _forbidden("torch")
+
+
+# the measurement entry points (the counterparts of bench.py,
+# bench_serving.py, benchmarks/ and dev/profile_query.py)
+ENTRY_POINTS = ("bench.py", "bench_serving.py", "benchmarks/__init__.py",
+                "benchmarks/tpch.py", "benchmarks/sweep.py",
+                "benchmarks/compare.py", "benchmarks/sf_run.py",
+                "benchmarks/cluster_run.py", "benchmarks/scaling.py",
+                "testing/profile_query.py", "testing/tpch_oracle.py")
+
+
+@pytest.mark.parametrize("mod", ENTRY_POINTS)
+def test_scan_covers_the_entry_points(mod):
+    path = os.path.join(PORT, *mod.split("/"))
+    assert path in _port_files()
+    bad = [(line, name) for line, name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{mod} imports {bad}"
+
+
+def test_oracle_loader_imports_no_jax_package():
+    """``testing/tpch_oracle.py`` runs the oracle's source with the
+    port's schemas: loading it imports neither jax nor the JAX package
+    (checked in a fresh interpreter, which has imported neither)."""
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "from ballista_tpu_torch.testing import tpch_oracle\n"
+            "o = tpch_oracle.load()\n"
+            "assert len(o.ORACLES) == 22\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'ballista_tpu') or "
+            "m == 'benchmarks.tpch.schema_def']\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
