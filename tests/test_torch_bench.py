@@ -267,7 +267,7 @@ def test_without_a_card_the_default_runs_nothing(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-m", "ballista_tpu_torch.bench", "--scale",
          "0.002", "--data", str(tmp_path), "--runs", "1"],
-        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env)
+        capture_output=True, text=True, timeout=240, cwd=ROOT, env=env)
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr
     assert proc.stdout == ""

@@ -755,6 +755,6 @@ def test_cuda_scheduler_creates_no_cuda_context(tmp_path):
     proc = subprocess.run(
         [sys.executable, "-c", _SCHEDULER_ONLY, d, sql("q5")], cwd=ROOT,
         env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True,
-        text=True, timeout=300)
+        text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "cuda initialized: False" in proc.stdout, proc.stdout

@@ -718,7 +718,10 @@ def test_cuda_concurrent_replays_keep_their_outputs():
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(120)
+    assert not any(t.is_alive() for t in threads), (
+        "test_cuda_concurrent_replays_keep_their_outputs: a thread did not "
+        "end within 120 s")
     assert not bad, f"{len(bad)} replays returned another graph's data"
 
 

@@ -91,7 +91,10 @@ def test_etcd_distributed_lock_mutual_exclusion(etcd):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(30)
+    assert not any(t.is_alive() for t in threads), (
+        "test_etcd_distributed_lock_mutual_exclusion: a worker did not end "
+        "within 30 s")
     for i in range(0, len(order), 2):
         assert order[i][0] == order[i + 1][0]
         assert order[i][1] == "in" and order[i + 1][1] == "out"

@@ -103,5 +103,5 @@ def test_oracle_loader_imports_no_jax_package():
             "m == 'benchmarks.tpch.schema_def']\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                          capture_output=True, text=True, timeout=300)
+                          capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-2000:]

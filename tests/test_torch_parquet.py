@@ -155,7 +155,7 @@ def reference_parquet(tpch_dir, tmp_path_factory):
         [sys.executable, "-m", "benchmarks.tpch.main", "convert", "--input",
          tpch_dir, "--output", out, "--format", "parquet",
          "--partitions", "1"],
-        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
     assert proc.returncode == 0, proc.stderr[-2000:]
     return out
 

@@ -125,7 +125,9 @@ def _joined_prewarm(monkeypatch, threads=None):
     def waiting(phys):
         t = real(phys)
         if t is not None:
-            t.join()
+            t.join(120)
+            assert not t.is_alive(), (
+                "_joined_prewarm: the prewarm thread did not end within 120 s")
             if threads is not None:
                 threads.append(t)
         return t

@@ -153,7 +153,10 @@ def test_job_progress_sees_the_collect_in_flight(fast_interval):
             seen = ctx.job_progress()
             time.sleep(0.02)
     finally:
-        th.join()
+        th.join(60)
+    assert not th.is_alive(), (
+        "test_job_progress_sees_the_collect_in_flight: the collect did not "
+        "end within 60 s")
     assert "err" not in box, box.get("err")
     assert int(box["out"]["s"][0]) == int(np.sum(DATA["a"]))
     assert seen is not None
