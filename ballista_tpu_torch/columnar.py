@@ -72,6 +72,15 @@ def side_stream_uploads():
         _tls.side = prev
 
 
+def upload_stream(device: torch.device) -> Optional[torch.cuda.Stream]:
+    """The stream an upload to ``device`` runs on: this thread's upload
+    stream inside ``side_stream_uploads()`` on a card, else None (the
+    thread's current stream)."""
+    if device.type == "cuda" and getattr(_tls, "side", False):
+        return _upload_stream(device)
+    return None
+
+
 def _upload_stream(device: torch.device) -> torch.cuda.Stream:
     """This thread's upload stream on ``device`` (one per thread and
     card, made at first use). Torch hands streams out round-robin from a
@@ -388,8 +397,8 @@ class ColumnBatch:
         cap = capacity or bucket_capacity(n)
         if cap < n:
             raise ExecutionError(f"capacity {cap} < rows {n}")
-        side = device.type == "cuda" and getattr(_tls, "side", False)
-        stream = _upload_stream(device) if side else None
+        stream = upload_stream(device)
+        side = stream is not None
         with torch.cuda.stream(stream) if side else nullcontext():
             cols: List[Column] = []
             for f in schema.fields:

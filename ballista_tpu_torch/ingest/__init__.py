@@ -36,9 +36,12 @@ from .config import (  # noqa: F401
 from .phases import (  # noqa: F401
     PhaseRecorder,
     bound_iter,
+    count,
     phase,
     phase_totals,
     reset_phase_totals,
+    reset_scan_counters,
+    scan_counters,
 )
 from .pipeline import (  # noqa: F401
     KeyedLocks,

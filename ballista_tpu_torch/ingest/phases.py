@@ -16,6 +16,13 @@ The io layer brackets its work in :func:`phase` blocks. Each block:
   from prefetch producer threads carry their own tids, which is what
   makes the overlap *observable* rather than inferred.
 
+Scan counters (:func:`count`, :func:`scan_counters`): the scans that
+parsed on the card (``scans_on_card``) and on the host
+(``scans_on_host``, and ``scans_on_host.<reason>``), the bytes parsed on
+the card (``device_parsed_bytes``, also on the scan's ``MetricsSet``) and
+the utf8 values that shared a 64-bit hash with another
+(``hash_collisions``).
+
 Binding is per-``next()`` (:func:`bound_iter`) or per-producer-loop
 (PrefetchHandle), never per-generator-scope, so interleaved generators
 on one thread can't cross-attribute. Nested same-name phases don't
@@ -34,6 +41,7 @@ from ..observability.tracing import trace_span
 _tls = threading.local()
 _totals_lock = threading.Lock()
 _totals: Dict[str, float] = {}
+_counts: Dict[str, int] = {}
 
 
 class PhaseRecorder:
@@ -60,6 +68,14 @@ class PhaseRecorder:
     def count_prefetched(self, n: int = 1) -> None:
         if self._metrics is not None:
             self._metrics.add_counter("prefetched_batches", n)
+
+    def count_device_parsed(self, nbytes: int) -> None:
+        """Bytes of text this scan parsed on the card."""
+        if self._metrics is not None:
+            # the port's own counter: observability/registry.py stays a
+            # verbatim copy of the JAX package's, which parses on the host
+            # ballista: ignore[metric-names]
+            self._metrics.add_counter("device_parsed_bytes", nbytes)
 
 
 @contextmanager
@@ -125,3 +141,28 @@ def phase_totals() -> Dict[str, float]:
 def reset_phase_totals() -> None:
     with _totals_lock:
         _totals.clear()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process scan counter ``name``; ``device_parsed_bytes``
+    also goes to the bound scan's ``MetricsSet``."""
+    with _totals_lock:
+        _counts[name] = _counts.get(name, 0) + int(n)
+    rec = getattr(_tls, "recorder", None)
+    if rec is not None and name == "device_parsed_bytes":
+        rec.count_device_parsed(int(n))
+
+
+def scan_counters() -> Dict[str, int]:
+    """Process-wide scan counters (see the module docstring)."""
+    with _totals_lock:
+        out = dict(_counts)
+    for name in ("scans_on_card", "scans_on_host", "device_parsed_bytes",
+                 "hash_collisions"):
+        out.setdefault(name, 0)
+    return out
+
+
+def reset_scan_counters() -> None:
+    with _totals_lock:
+        _counts.clear()

@@ -1,11 +1,12 @@
 """Builds the port's native libraries from the sources in the checkout.
 
-Two shared libraries, each with a plain C interface loaded with ctypes,
+Three shared libraries, each with a plain C interface loaded with ctypes,
 and one program:
 
 - ``native/tblscan.cpp`` (the port's own copy of the JAX package's
   scanner) with ``g++``;
-- ``csrc/dense_grouped_sums.cu`` with ``nvcc`` for ``sm_90a``;
+- ``csrc/dense_grouped_sums.cu`` and ``csrc/tbl_parse.cu`` with ``nvcc``
+  for ``sm_90a``;
 - ``native/shuffle_server.cpp`` (the port's own copy of the JAX
   package's data-plane daemon) with ``g++``, as an executable.
 
@@ -120,4 +121,9 @@ def build_shuffle_server() -> str:
 def build_dense_grouped_sums() -> str:
     return build_library("dense_grouped_sums",
                          os.path.join("csrc", "dense_grouped_sums.cu"),
+                         [find_nvcc()], NVCC_FLAGS)
+
+
+def build_tbl_parse() -> str:
+    return build_library("tbl_parse", os.path.join("csrc", "tbl_parse.cu"),
                          [find_nvcc()], NVCC_FLAGS)

@@ -1,16 +1,18 @@
-"""Checks of the CUDA kernel that need a card and ``nvcc``.
+"""Checks of the CUDA kernels that need a card and ``nvcc``.
 
 Run from the root of a checkout: ``python3 -m
 ballista_tpu_torch.testing.card_checks``. Two checks; any failure gives a
 non-zero exit:
 
-1. ptxas's report (``nvcc -Xptxas -v``) on ``csrc/dense_grouped_sums.cu``,
-   built with the flags the port builds it with: each instantiation's
-   registers, and no stack frame and no spills;
+1. ptxas's report (``nvcc -Xptxas -v``) on ``csrc/dense_grouped_sums.cu``
+   and ``csrc/tbl_parse.cu``, built with the flags the port builds them
+   with: each kernel's registers, and no stack frame and no spills;
 2. the card-only tests of ``tests/test_torch_dense_sums.py``,
-   ``tests/test_torch_compile_governor.py``, ``tests/test_torch_ingest.py``
-   and ``tests/test_torch_cluster.py`` (their ``test_cuda_*`` functions: the
-   kernel against its plain version; governed programs captured as CUDA
+   ``tests/test_torch_compile_governor.py``, ``tests/test_torch_ingest.py``,
+   ``tests/test_torch_cluster.py`` and ``tests/test_torch_tbl_device.py``
+   (their ``test_cuda_*`` functions: the kernels against their plain
+   versions and the host scanner, a cold q1 and q10 parsed on the card;
+   governed programs captured as CUDA
    graphs — outputs that survive later replays, the kernel counted and
    observed on every replay; pinned asynchronous uploads on producer
    streams while programs are captured, and ``record_stream`` keeping a
@@ -36,14 +38,21 @@ from ..native_build import BUILD_DIR, NVCC_FLAGS, PACKAGE_DIR, find_nvcc
 TEST_FILES = [os.path.join("tests", "test_torch_dense_sums.py"),
               os.path.join("tests", "test_torch_compile_governor.py"),
               os.path.join("tests", "test_torch_ingest.py"),
-              os.path.join("tests", "test_torch_cluster.py")]
+              os.path.join("tests", "test_torch_cluster.py"),
+              os.path.join("tests", "test_torch_tbl_device.py")]
+SOURCES = [os.path.join("csrc", "dense_grouped_sums.cu"),
+           os.path.join("csrc", "tbl_parse.cu")]
 STAND_INS = ("jax", "jax.numpy", "ballista_tpu", "ballista_tpu.kernels",
              "ballista_tpu.kernels.aggregate",
              "ballista_tpu.kernels.pallas_agg")
 
 
 def ptxas_report() -> None:
-    src = os.path.join(PACKAGE_DIR, "csrc", "dense_grouped_sums.cu")
+    for source in SOURCES:
+        ptxas_report_of(os.path.join(PACKAGE_DIR, source))
+
+
+def ptxas_report_of(src: str) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     out = os.path.join(BUILD_DIR, f"ptxas-check-{os.getpid()}.so")
     try:

@@ -7,9 +7,9 @@ pandas. Phases, in order (any failure is an uncaught exception and a
 non-zero exit):
 
 1. card: the name and power limit as nvidia-smi reports them;
-2. build: the CUDA kernel (nvcc, sm_90a), the native scanner (g++) and
+2. build: the CUDA kernels (nvcc, sm_90a), the native scanner (g++) and
    the native shuffle server (g++) from the checkout's sources, the
-   three compilers started together;
+   four compilers started together;
    then the set-up: TPC-H data at SF1 (``benchmarks/tpch/datagen.py``)
    in ``bench_data/sf1``, reused while its ``.complete`` marker holds the
    current ``DATAGEN_VERSION``;
@@ -27,14 +27,24 @@ non-zero exit):
    plain version, one ``index_add_`` call and one ``scatter_reduce_``
    call that finds the first rows: each call by its own CUDA events after
    a 256 MB write has flushed the L2 cache, the host's launch hidden
-   behind a sleep on the card (``ms``) or not (``call_ms``);
+   behind a sleep on the card (``ms``) or not (``call_ms``); then the
+   text parse on the card (``kernels/tbl_parse.py``, built in phase 2)
+   on SF1 lineitem with q1's projection and customer with q10's, held to
+   the host scanner (rows, columns, validity, dictionaries) as the
+   kernels and as their plain twin run on the card, with the host's read
+   and stage, the parse's wall, its kernels' device time from
+   ``torch.profiler``, its bound and the host scanner's wall
+   (``phase_tbl_parse``; a ``tbl_parse`` entry in phase 20's line);
 4. TPC-H q1 and q6 through ``BallistaContext.standalone()`` on "cuda",
    fused (the default) and run as captured CUDA graphs: the kernel's
    launch count is reset just before and read just after each q1
    collect (>= 2 launches: partial and final aggregate; a warm collect's
-   launches are replays of the captured ones); every kernel call of
-   every collect, the replayed ones included, is observed and its
-   outputs held against the plain version on its inputs, bit for bit;
+   launches are replays of the captured ones), and so is ``tbl_parse``'s
+   around each collect (a cold one parses lineitem on the card: >= 7
+   launches for q1, >= 3 for q6; the kernels line's ``launches``);
+   every kernel call of every collect, the replayed ones included, is
+   observed and its outputs held against the plain version on its
+   inputs, bit for bit;
    the kernel is launched again on the inputs of every call q1's cold
    collect made, the partial's timed, on a misaligned copy of the
    partial's inputs (the VEC = 1 instantiation, ``vec1_ms``), and
@@ -336,7 +346,7 @@ def phase_card(card: str) -> str:
 def phase_build() -> None:
     from ballista_tpu_torch import native_build
     from ballista_tpu_torch.io import native
-    from ballista_tpu_torch.kernels import dense_sums
+    from ballista_tpu_torch.kernels import dense_sums, tbl_parse
 
     errors = []
 
@@ -351,6 +361,8 @@ def phase_build() -> None:
 
     threads = [threading.Thread(target=run, args=("dense_grouped_sums (nvcc)",
                                                   dense_sums.build)),
+               threading.Thread(target=run, args=("tbl_parse (nvcc)",
+                                                  tbl_parse.build)),
                threading.Thread(target=run, args=("tblscan (g++)",
                                                   native.build)),
                threading.Thread(target=run, args=(
@@ -738,9 +750,16 @@ def assert_equal_results(name: str, got, want) -> None:
             raise AssertionError(f"{name}.{c}: {g[:8]} != {w[:8]}")
 
 
+# tbl_parse launches a cold collect's scan of SF1 lineitem (one file) must
+# make: the row split 2, the field walk 1, and 2 a utf8 column (q1's
+# l_returnflag and l_linestatus; q6 reads none)
+TBL_PARSE_MAIN_PATH = {"q1": 3 + 2 * 2, "q6": 3}
+
+
 def phase_queries(data_dir: str):
     from ballista_tpu_torch.client import BallistaContext
     from ballista_tpu_torch.kernels import dense_sums as ds
+    from ballista_tpu_torch.kernels import tbl_parse
     from ballista_tpu_torch.testing.tpch_schema import register_tpch
 
     sqls = {q: open(os.path.join(QUERY_DIR, f"{q}.sql")).read()
@@ -749,18 +768,26 @@ def phase_queries(data_dir: str):
     ctx = BallistaContext.standalone()  # device="cuda"
     register_tpch(ctx, data_dir, tables=["lineitem"])
     results, timings, launches = {}, {}, []
-    spy_shapes, main_calls = [], []
+    spy_shapes, main_calls, parse_launches = [], [], {}
     for q in ("q1", "q6"):
         for run in ("cold", "warm"):
             df = ctx.sql(sqls[q])
             with KernelCallLog() as spy:
                 torch.cuda.synchronize()
                 ds.launch_count = 0
+                tbl_parse.launch_count = 0
                 t0 = time.perf_counter()
                 out = df.to_pydict()
                 torch.cuda.synchronize()
                 secs = time.perf_counter() - t0
                 n_launch = ds.launch_count
+                parse_launches[f"{q}_{run}"] = tbl_parse.launch_count
+            if run == "cold" and \
+                    parse_launches[f"{q}_cold"] < TBL_PARSE_MAIN_PATH[q]:
+                raise AssertionError(
+                    f"{q} cold: tbl_parse launched "
+                    f"{parse_launches[f'{q}_cold']} times, expected >= "
+                    f"{TBL_PARSE_MAIN_PATH[q]} (lineitem parsed on the card)")
             spy_shapes += [(int(c[0].shape[0]), len(c[2]), c[3])
                            for c in spy.calls]
             # every call, the warm collect's graph replays included
@@ -775,7 +802,8 @@ def phase_queries(data_dir: str):
                         f"{n_launch} times, expected >= 2 (partial + final)")
             timings[f"{q}_{run}_s"] = secs
             log(f"# {q} {run}: {secs:.4f} s, {rows / secs:,.0f} rows/s, "
-                f"dense_grouped_sums launches {n_launch}")
+                f"dense_grouped_sums launches {n_launch}, tbl_parse "
+                f"launches {parse_launches[f'{q}_{run}']}")
             results[(q, run)] = out
     for q in ("q1", "q6"):
         assert_equal_results(f"{q} warm vs cold", results[(q, "warm")],
@@ -820,7 +848,8 @@ def phase_queries(data_dir: str):
         assert_equal_results(f"{q} cuda vs numpy", got, ref[q])
         log(f"# {q}: cuda == port on cpu == numpy group-by "
             f"({len(next(iter(got.values())))} rows)")
-    return timings, launches, sorted(set(spy_shapes)), main_path, ref["q1"]
+    return (timings, launches, sorted(set(spy_shapes)), main_path, ref["q1"],
+            parse_launches)
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -1977,6 +2006,218 @@ def phase_hash_ids(data_dir: str) -> None:
 
 
 # -- phase 12 ---------------------------------------------------------------
+
+
+# q1's projection of lineitem and q10's of customer
+TBL_PARSE_SCANS = (
+    ("lineitem", ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+                  "l_returnflag", "l_linestatus", "l_shipdate"]),
+    ("customer", ["c_custkey", "c_name", "c_address", "c_nationkey",
+                  "c_phone", "c_acctbal", "c_comment"]),
+)
+TBL_PARSE_KERNELS = ("count_row_starts", "write_row_starts", "parse_rows",
+                     "verify_groups", "gather_values")
+# the mix's utf8 columns of each table, for the two dictionary steps
+DICTIONARY_COLUMNS = {
+    "lineitem": ["l_returnflag", "l_linestatus", "l_shipmode"],
+    "customer": ["c_name", "c_address", "c_phone", "c_mktsegment",
+                 "c_comment"],
+}
+
+
+def byte_order_encode(data, fstart, flen):
+    """Exact ordinal codes with no hash: every row sorted bytewise
+    (``tbl_parse.byte_order``), a new value wherever a row's length or an
+    8-byte chunk differs from the row before it."""
+    from ballista_tpu_torch.kernels import tbl_parse
+
+    dev = data.device
+    order = tbl_parse.byte_order(data, fstart, flen)
+    s, ln = fstart[order], flen[order].to(torch.int64)
+    new = torch.ones(order.numel(), dtype=torch.bool, device=dev)
+    new[1:] = ln[1:] != ln[:-1]
+    shifts = torch.arange(56, -8, -8, dtype=torch.int64, device=dev)
+    top = data.numel() - 1
+    for j in range(0, int(ln.max()), 8):
+        pos = j + torch.arange(8, dtype=torch.int64, device=dev)
+        b = data[(s[:, None] + pos).clamp(max=top)].to(torch.int64)
+        key = (torch.where(pos < ln[:, None], b, 0) << shifts).sum(1)
+        new[1:] |= key[1:] != key[:-1]
+    codes = torch.empty(order.numel(), dtype=torch.int32, device=dev)
+    codes[order] = (torch.cumsum(new, 0) - 1).to(torch.int32)
+    blob, offsets = tbl_parse._values_of(data, fstart, flen, order[new])
+    return tbl_parse.SortedValues(blob, offsets), codes
+
+
+def dictionary_paths(data, size, begin, kinds, scales, columns) -> dict:
+    """Per utf8 column ``{name: index}``: the card's wall (ms, median of
+    5) of the hash path (``tbl_parse.dictionary_encode``) against
+    ``byte_order_encode`` over every row, after both gave the same
+    dictionary and codes."""
+    from ballista_tpu_torch.kernels import tbl_parse
+
+    dev = data.device
+    starts = tbl_parse._split_rows_cuda(data, size, begin)
+    n = starts.numel()
+    cols = {ci: {"start": torch.empty(n, dtype=torch.int64, device=dev),
+                 "len": torch.empty(n, dtype=torch.int32, device=dev),
+                 "hash": torch.empty(n, dtype=torch.int64, device=dev)}
+            for ci in columns.values()}
+    run_kinds = [kinds[ci] if ci in cols else -1 for ci in range(len(kinds))]
+    err, _ = tbl_parse._parse_rows_cuda(data, size, starts, ord("|"),
+                                        run_kinds, list(scales), cols)
+    if err is not None:
+        raise AssertionError(f"dictionary paths: parse error {err}")
+
+    def wall_ms(fn):
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t0)
+        return 1e3 * float(np.median(out))
+
+    res = {}
+    for name, ci in columns.items():
+        c = cols[ci]
+        hashed = lambda: tbl_parse.dictionary_encode(data, c["start"],
+                                                     c["len"], c["hash"])
+        ordered = lambda: byte_order_encode(data, c["start"], c["len"])
+        sv, codes, _ = hashed()
+        sv2, codes2 = ordered()
+        if not (sv.same_as(sv2) and torch.equal(codes, codes2)):
+            raise AssertionError(f"dictionary paths differ on {name}")
+        res[name] = {"values": len(sv), "hash_ms": wall_ms(hashed),
+                     "byte_order_ms": wall_ms(ordered)}
+    return res
+
+
+def device_ms_by_kernel(fn) -> dict:
+    """Milliseconds of device time by kernel name over one ``fn()`` call,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0)
+        if us and getattr(e, "device_type", None) is not None and \
+                "CUDA" in str(e.device_type):
+            out[e.key] = out.get(e.key, 0.0) + us / 1e3
+    return out
+
+
+def phase_tbl_parse(data_dir: str) -> list:
+    """The text parse on the card (``kernels/tbl_parse.py``) against the
+    host scanner on SF1 lineitem (q1's projection) and customer (q10's):
+    rows, columns, validity and dictionaries equal; the host's read and
+    stage (``io.text.stage_text``: wall, its rate, and the host's side
+    alone), the parse's wall on staged bytes (``call_ms``), the device
+    time of the hand-written kernels in it (``ms``) and of all its device
+    work (``device_ms``), its bound (the file read once at 3.35 TB/s), the
+    plain twin's wall on the card, the host scanner's wall, and the two
+    ways to a utf8 column's dictionary (``dictionary_paths``)."""
+    from ballista_tpu_torch.io import native, text
+    from ballista_tpu_torch.io.native import _KIND_CODES
+    from ballista_tpu_torch.kernels import tbl_parse
+    from ballista_tpu_torch.testing.tpch_schema import TPCH_SCHEMAS
+
+    dev = torch.device("cuda")
+    rows = []
+    for table, names in TBL_PARSE_SCANS:
+        path = os.path.join(data_dir, table, "partition0.tbl")
+        sch = TPCH_SCHEMAS[table]
+        kinds = [_KIND_CODES[f.dtype.kind] for f in sch.fields]
+        scales = [f.dtype.scale for f in sch.fields]
+        wanted = [sch.index_of(m) for m in names]
+        host_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            n, arrays, dicts, valids = native.scan_file(path, sch, names)
+            host_s.append(time.perf_counter() - t0)
+        stage_host, stage_wall = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            data, size, begin = text.stage_text(path, dev, False)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            stage_host.append(t1 - t0)
+            stage_wall.append(time.perf_counter() - t0)
+        args = (data, size, begin, ord("|"), kinds, scales, wanted)
+
+        def check(parsed, label):
+            if parsed.rows != n:
+                raise AssertionError(f"{label}: {parsed.rows} rows, host {n}")
+            for j, m in enumerate(names):
+                got = parsed.values[j][:n].cpu().numpy()
+                if not np.array_equal(got, arrays[m]):
+                    raise AssertionError(f"{label}: column {m} differs")
+                if (parsed.validity[j] is None) != (m not in valids):
+                    raise AssertionError(f"{label}: validity of {m}")
+                sv = parsed.dictionaries[j]
+                if sv is not None and list(sv.strings()) != list(dicts[m]):
+                    raise AssertionError(f"{label}: dictionary of {m}")
+
+        tbl_parse.launch_count = 0
+        parsed = tbl_parse.parse(*args)
+        torch.cuda.synchronize()
+        launches = tbl_parse.launch_count
+        check(parsed, f"{table} kernels")
+        del parsed
+        call_s = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tbl_parse.parse(*args)
+            torch.cuda.synchronize()
+            call_s.append(time.perf_counter() - t0)
+        by_kernel = device_ms_by_kernel(lambda: tbl_parse.parse(*args))
+        mine = {k: v for k, v in by_kernel.items()
+                if any(name in k for name in TBL_PARSE_KERNELS)}
+        on_card = tbl_parse._on_card
+        tbl_parse._on_card = lambda t: False  # the plain twin, on the card
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            twin = tbl_parse.parse(*args)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+        finally:
+            tbl_parse._on_card = on_card
+        check(twin, f"{table} plain twin on the card")
+        del twin
+        dictionary_ms = dictionary_paths(
+            data, size, begin, kinds, scales,
+            {m: sch.index_of(m) for m in DICTIONARY_COLUMNS[table]})
+        del data
+        row = {
+            "table": table, "columns": len(names), "rows": n, "bytes": size,
+            "call_launches": launches,
+            "ms": sum(mine.values()),
+            "kernel_ms": mine,
+            "device_ms": sum(by_kernel.values()),
+            "call_ms": 1e3 * float(np.median(call_s)),
+            "bound_ms": size / 3.35e12 * 1e3,
+            "plain_ms": 1e3 * plain_s,
+            "dictionary_ms": dictionary_ms,
+            "host_scanner_ms": 1e3 * float(np.median(host_s)),
+            "stage_ms": 1e3 * float(np.median(stage_wall)),
+            "stage_host_ms": 1e3 * float(np.median(stage_host)),
+            "stage_gb_per_s": size / float(np.median(stage_wall)) / 1e9,
+            "top_device_ops": sorted(by_kernel.items(),
+                                     key=lambda kv: -kv[1])[:8],
+        }
+        log(f"# tbl_parse {table}: {json.dumps(row)}")
+        rows.append(row)
+    return rows
 
 
 def assert_close_results(name: str, got, want) -> None:
@@ -4092,7 +4333,9 @@ def main() -> int:
     data_dir = setup_data()
     small_dir = setup_data(SMALL_SCALE, num_parts=2)
     q1_shape = phase_kernel_check(lineitem_rows(data_dir))
-    timings, launches, shapes, main_path, numpy_q1 = phase_queries(data_dir)
+    tbl_parse_rows = phase_tbl_parse(data_dir)
+    timings, launches, shapes, main_path, numpy_q1, parse_launches = \
+        phase_queries(data_dir)
     if main_path["n"] != q1_shape["n"]:
         raise AssertionError(f"phase 3 timed N={q1_shape['n']} but q1's "
                              f"partial aggregate ran at N={main_path['n']}")
@@ -4195,6 +4438,14 @@ def main() -> int:
         "q5_library_ms": q5_main["library_ms"],
         "q5_shape": {"n": q5_main["n"], "k": q5_main["k"],
                      "g": q5_main["g"]},
+    }, {
+        "name": "tbl_parse",
+        "route": "cuda",
+        "source": "ballista_tpu_torch/csrc/tbl_parse.cu",
+        "replaces": None,
+        "launches": parse_launches,
+        "matched": True,
+        "scans": tbl_parse_rows,
     }]
     log(f"# card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
