@@ -10,7 +10,8 @@ attribution drifts without any test failing. This pass closes the
 loop: every constant span/event name emitted anywhere in the package
 must be either
 
-- mapped by ``export.LANE_SPANS`` or ``ledger.LEDGER_SPANS``,
+- mapped by ``export.LANE_SPANS``, ``ledger.LEDGER_SPANS`` or
+  ``operators.OPERATOR_SPANS``,
 - covered by a mapped PREFIX (``ingest.*`` — compute_lanes folds the
   whole ingest family into the parse/h2d lanes by prefix), or
 - on the explicit :data:`UNMAPPED_ALLOWLIST` with a justification.
@@ -77,8 +78,10 @@ class LaneCoverageRule(Rule):
     def run(self, package: Package) -> List[Finding]:
         from ballista_tpu_torch.observability.export import LANE_SPANS
         from ballista_tpu_torch.observability.ledger import LEDGER_SPANS
+        from ballista_tpu_torch.observability.operators import (
+            OPERATOR_SPANS)
 
-        mapped = set(LANE_SPANS) | set(LEDGER_SPANS)
+        mapped = set(LANE_SPANS) | set(LEDGER_SPANS) | set(OPERATOR_SPANS)
         findings: List[Finding] = []
         for sf in package.files:
             for node in ast.walk(sf.tree):
@@ -97,14 +100,14 @@ class LaneCoverageRule(Rule):
 
 
 def _span_name(node: ast.AST):
-    """The constant first argument of a trace_span/trace_event call,
-    else None."""
+    """The constant first argument of a trace_span/trace_event/
+    record_span call, else None."""
     if not isinstance(node, ast.Call) or not node.args:
         return None
     f = node.func
     fname = (f.id if isinstance(f, ast.Name)
              else f.attr if isinstance(f, ast.Attribute) else "")
-    if fname not in ("trace_span", "trace_event"):
+    if fname not in ("trace_span", "trace_event", "record_span"):
         return None
     first = node.args[0]
     if isinstance(first, ast.Constant) and isinstance(first.value, str):

@@ -27,7 +27,7 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -143,7 +143,8 @@ class Dictionary:
     """
 
     __slots__ = ("values", "_index", "_str_cache", "_hash_cache",
-                 "_str_exact", "_reg_entry_id", "_reg_version", "_reg_epoch")
+                 "_str_exact", "_reg_entry_id", "_reg_version", "_reg_epoch",
+                 "_derived")
 
     def __init__(self, values: Sequence[str]):
         self.values: np.ndarray = np.asarray(list(values), dtype=object)
@@ -155,6 +156,8 @@ class Dictionary:
         self._reg_entry_id: Optional[str] = None
         self._reg_version: Optional[int] = None
         self._reg_epoch: Optional[str] = None
+        # transform key -> (derived dictionary, remap), see ``derived``
+        self._derived: Dict[tuple, Tuple["Dictionary", np.ndarray]] = {}
 
     def __len__(self) -> int:
         return len(self.values)
@@ -233,6 +236,19 @@ class Dictionary:
         uniq, remap = np.unique(np.asarray(values, dtype=object),
                                 return_inverse=True)
         return Dictionary(uniq), remap.astype(np.int32)
+
+    def derived(self, key: tuple, transform: Callable[[str], str]
+                ) -> Tuple["Dictionary", np.ndarray]:
+        """``canonicalize`` of ``transform`` over the values, built once
+        per ``key`` (the transform and its arguments): the same transform
+        of the same dictionary is the same instance, so programs whose
+        signature holds it replay instead of being built again."""
+        got = self._derived.get(key)
+        if got is None:
+            got = Dictionary.canonicalize([transform(str(v))
+                                           for v in self.values])
+            got = self._derived.setdefault(key, got)
+        return got
 
     def __hash__(self) -> int:
         return id(self)

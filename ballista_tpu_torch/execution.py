@@ -26,6 +26,7 @@ from .logical import (
     Repartition,
     Sort,
 )
+from .observability import trace_span
 from .optimizer import optimize
 from .physical.base import PhysicalPlan
 from .physical.planner import create_physical_plan
@@ -46,8 +47,9 @@ def resolve_scalar_subqueries(plan: LogicalPlan, options=None) -> LogicalPlan:
                 "unplanned scalar subquery (correlated scalar subqueries "
                 "are only supported in WHERE comparisons)"
             )
-        out = collect_physical(plan_logical(sub, options))
         f = sub.schema().fields[0]
+        with trace_span("subquery.scalar", column=f.name):
+            out = collect_physical(plan_logical(sub, options))
         col = out[f.name]
         if len(col) == 0:
             return ex.Literal(None, f.dtype)  # SQL: empty scalar -> NULL

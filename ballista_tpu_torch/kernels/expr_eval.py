@@ -687,8 +687,7 @@ class Evaluator:
 
             h = getattr(hashlib, fn)
             return self._remapped_dict(
-                base, [h(str(v).encode("utf-8")).hexdigest() for v in d.values]
-            )
+                base, (fn,), lambda v: h(v.encode("utf-8")).hexdigest())
         if fn == "to_timestamp":
             # parse each distinct string once -> epoch-ns lookup table
             from ..datatypes import TimestampNs
@@ -725,14 +724,17 @@ class Evaluator:
                 raise NotImplementedError_("substr with non-literal bounds")
             s0 = int(start.value) - 1  # SQL 1-based
             ln = int(length.value)
-            return self._remapped_dict(base, [str(v)[s0 : s0 + ln] for v in d.values])
+            return self._remapped_dict(base, (fn, s0, ln),
+                                       lambda v: v[s0 : s0 + ln])
         tf = {"upper": str.upper, "lower": str.lower, "trim": str.strip,
               "ltrim": str.lstrip, "rtrim": str.rstrip}[fn]
-        return self._remapped_dict(base, [tf(str(v)) for v in d.values])
+        return self._remapped_dict(base, (fn,), tf)
 
-    def _remapped_dict(self, base: Evaluated, new_values) -> Evaluated:
+    def _remapped_dict(self, base: Evaluated, key: tuple,
+                       transform) -> Evaluated:
         # derived dictionaries must stay sorted + duplicate-free for the
-        # comparison kernels; canonicalize and remap the codes
-        newd, remap = Dictionary.canonicalize(new_values)
+        # comparison kernels; canonicalize and remap the codes, once per
+        # transform of a dictionary (``Dictionary.derived``)
+        newd, remap = base.dictionary.derived(key, transform)
         return Evaluated(_gather_clip(remap, base.values), Utf8,
                          base.validity, newd)

@@ -837,6 +837,9 @@ class StandaloneQueryRecorder:
         self.ledger = obs_ledger.build_ledger(
             self.job_id, wall, origin="standalone", status=status,
             phases=phases)
+        from .operators import operator_sums
+
+        self.ledger["operators"] = operator_sums(records or ())
         obs_ledger.record_ledger(self.ledger)
 
     def finish(self, status: str, result=None, phys=None,

@@ -333,6 +333,23 @@ def trace_event(name: str, **attrs) -> None:
     _emit(rec)
 
 
+def record_span(name: str, start: float, seconds: float, **attrs) -> None:
+    """One span line whose duration the caller measured: an operator's
+    own time summed over the batches of one call, which a ``with``
+    block around a generator cannot give (it would also hold its input's
+    and its consumer's time). ``start`` is the epoch time it began."""
+    if not _recording():
+        return
+    rec = _base_record(name, attrs)
+    rec["ts"] = start
+    rec["dur"] = seconds
+    rec["sid"] = next(_span_ids)
+    st = _span_stack()
+    if st:
+        rec["psid"] = st[-1]
+    _emit(rec)
+
+
 class trace_span:
     """``with trace_span("executor.task", task=key): ...`` — records one
     line with the span's start time and duration (exceptions are noted

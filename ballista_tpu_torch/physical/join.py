@@ -24,12 +24,21 @@ uniqueness and duplicate flags, and the expanding probe's match totals
 may hand the join a ``probe_chain``: the Filter/Projection chain that fed
 its probe side, applied inside every probe program, with
 ``probe_key_raw`` naming each probe key's column before the chain.
+
+A join other than a plain inner one (semi, anti, outer, or one the SQL
+planner made from a correlated subquery; ``join_kind``) records a
+``join.build`` span around its key table's build and one ``join.probe``
+span a call, of the probe's own time, and counts its probes and rows in
+``join_counters()``. The standalone latency ledger sums the spans under
+its ``operators`` key.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Iterator, List, Optional, Tuple
+import threading
+import time
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +52,120 @@ from ..errors import ExecutionError, NotImplementedError_
 from ..ingest import KeyedLocks
 from ..kernels import join as join_k
 from ..observability import trace_span
+from ..observability.tracing import record_span
 from .base import PhysicalPlan, Partitioning, concat_batches, maybe_compact
 
 JOIN_TYPES = ("inner", "left", "semi", "anti", "full")
 
 _I64_MAX = torch.iinfo(torch.int64).max
+
+
+# Key-name prefixes of the derived tables the SQL planner joins when it
+# decorrelates a subquery (``sql/planner.py``): a correlated scalar
+# subquery's ``__corr_key<n>_<i>`` (TPC-H q2, q20), and a correlated
+# EXISTS with one ``<>`` conjunct's ``__ex_key<n>`` (q21), whose residual
+# the filter above the join tests on the joined count/min/max.
+_DECORRELATED = (("__corr_key", "scalar"), ("__ex_key", "exists"))
+
+
+def join_kind(how: str, null_aware: bool,
+              on: List[Tuple[str, str]]) -> Optional[str]:
+    """What a join's ``join.build``/``join.probe`` spans and
+    :func:`join_counters` call it: its type (``anti_null_aware`` for
+    ``NOT IN``), then ``.scalar`` or ``.exists`` where the planner made
+    it from a correlated subquery. None for a plain inner join, which
+    records neither."""
+    kind = how + ("_null_aware" if null_aware else "")
+    for prefix, origin in _DECORRELATED:
+        if any(c.startswith(prefix) for pair in on for c in pair):
+            return f"{kind}.{origin}"
+    return None if how == "inner" else kind
+
+
+class _JoinCounters:
+    """Process-wide counts of the joins :func:`join_kind` names: probe
+    calls, probe batches, and the live rows into and out of their
+    probes. A row count stays a device value until read, so counting
+    never waits on the card; a long list is summed on its device."""
+
+    _FOLD_AT = 256
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: Dict[str, int] = {}
+        self._rows: Dict[str, list] = {}
+
+    def add(self, kind: str, rows_in: list, rows_out: list) -> None:
+        with self._lock:
+            for name, n in (("probes", 1), ("batches", len(rows_in))):
+                key = f"{kind}.{name}"
+                self._counts[key] = self._counts.get(key, 0) + n
+            for name, rows in (("rows_in", rows_in), ("rows_out", rows_out)):
+                pending = self._rows.setdefault(f"{kind}.{name}", [])
+                pending.extend(rows)
+                if len(pending) > self._FOLD_AT:
+                    pending[:] = _fold_counts(pending)
+
+    def read(self) -> Dict[str, int]:
+        from ..observability.metrics import _fetch_counts
+
+        with self._lock:
+            out = dict(self._counts)
+            keys = list(self._rows)
+            pending = [list(self._rows[k]) for k in keys]
+        flat = _fetch_counts([c for p in pending for c in p])
+        i = 0
+        for k, p in zip(keys, pending):
+            out[k] = sum(flat[i:i + len(p)])
+            i += len(p)
+        return out
+
+
+def _fold_counts(counts: list) -> list:
+    """``counts`` (ints and 0-d tensors) as one int and one tensor a
+    device, summed without a read from the card."""
+    total, by_device = 0, {}
+    for c in counts:
+        if isinstance(c, torch.Tensor):
+            by_device.setdefault(c.device, []).append(
+                c.reshape(()).to(torch.int64))
+        else:
+            total += int(c)
+    return [total] + [torch.stack(v).sum() for v in by_device.values()]
+
+
+_JOIN_COUNTERS = _JoinCounters()
+
+
+def join_counters() -> Dict[str, int]:
+    """``<kind>.probes``, ``.batches``, ``.rows_in`` and ``.rows_out``
+    of every kind of join this process has probed (one copy from the
+    card for the row counts)."""
+    return _JOIN_COUNTERS.read()
+
+
+class _ProbeClock:
+    """The time one probe call spends pulling its input, and the live
+    rows of each input batch."""
+
+    __slots__ = ("child", "rows_in")
+
+    def __init__(self):
+        self.child = 0.0
+        self.rows_in: list = []
+
+    def pull(self, batches: Iterator[ColumnBatch]) -> Iterator[ColumnBatch]:
+        perf = time.perf_counter
+        while True:
+            t0 = perf()
+            try:
+                pb = next(batches)
+            except StopIteration:
+                self.child += perf() - t0
+                return
+            self.child += perf() - t0
+            self.rows_in.append(pb.num_rows)
+            yield pb
 
 
 def _and(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
@@ -107,6 +225,7 @@ class JoinExec(PhysicalPlan):
         self._build_locks = KeyedLocks()
         self._remap_cache = {}
         self._expand_cap_floor = 0
+        self._kind = join_kind(how, null_aware, self.on)
 
     def _signature_parts(self) -> tuple:
         # partitioned/adaptive_note steer HOST orchestration only — no
@@ -348,6 +467,14 @@ class JoinExec(PhysicalPlan):
                 raise ExecutionError("join build side produced no batches")
             # a hash partition may be empty
             batches = [empty_batch(self.build.output_schema(), self.device)]
+        if self._kind is None:
+            return self._table_build(batches)
+        with trace_span("join.build", kind=self._kind,
+                        residual=self._kind.endswith(".exists")):
+            return self._table_build(batches)
+
+    def _table_build(self, batches: List[ColumnBatch]):
+        """The build side's batches as one batch and its key table."""
         bb = concat_batches(self.build.output_schema(), batches)
         bcols = [b for b, _ in self.on]
         stats, live = self._build_stats(bb, bcols)
@@ -387,13 +514,47 @@ class JoinExec(PhysicalPlan):
                 live)
 
     def execute(self, partition: int) -> Iterator[ColumnBatch]:
+        built = self._materialize_build(partition)
+        if self._kind is None:
+            yield from self._probe_all(partition, built, self.probe.execute)
+            return
+        # one join.probe span a call: the probe's own time, its input's
+        # and its consumer's left out
+        clock = _ProbeClock()
+        batches = self._probe_all(
+            partition, built, lambda p: clock.pull(self.probe.execute(p)))
+        perf = time.perf_counter
+        start, busy, rows_out = time.time(), 0.0, []
+        try:
+            while True:
+                t0 = perf()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    busy += perf() - t0
+                    return
+                busy += perf() - t0
+                rows_out.append(batch.num_rows)
+                yield batch
+        finally:
+            batches.close()
+            record_span("join.probe", start, max(busy - clock.child, 0.0),
+                        kind=self._kind,
+                        residual=self._kind.endswith(".exists"),
+                        batches=len(clock.rows_in))
+            _JOIN_COUNTERS.add(self._kind, clock.rows_in, rows_out)
+
+    def _probe_all(self, partition: int, built, probe_batches):
+        """The join's output for ``partition``; ``probe_batches(p)`` gives
+        the probe side's batches of partition ``p``."""
         (table, build_batch, unique, has_null_key, mode, key_tables,
-         bkeys, blive) = self._materialize_build(partition)
+         bkeys, blive) = built
         if self.how == "full":
             if partition != 0:
                 raise ExecutionError("full outer join has a single partition")
             yield from self._execute_full(table, build_batch, unique,
-                                          mode, key_tables, bkeys, blive)
+                                          mode, key_tables, bkeys, blive,
+                                          probe_batches)
             return
         if self.how == "anti" and self.null_aware and has_null_key:
             # SQL NOT IN with a NULL in the subquery: predicate is never
@@ -404,7 +565,7 @@ class JoinExec(PhysicalPlan):
                 yield empty_batch(self.output_schema(),
                                   build_batch.device)
                 return
-            for pb in self.probe.execute(partition):
+            for pb in probe_batches(partition):
                 yield pb.with_selection(torch.zeros_like(pb.selection))
             return
         if unique or self.how in ("semi", "anti"):
@@ -412,26 +573,26 @@ class JoinExec(PhysicalPlan):
             # regardless of build duplicates. Selective joins strand few
             # live rows in large batches; compacting shrinks every
             # downstream operator
-            for pb in self.probe.execute(partition):
+            for pb in probe_batches(partition):
                 remaps = self._remaps_for(build_batch, pb)
                 yield maybe_compact(self._probe_unique_batch(
                     table, build_batch, pb, mode, key_tables, remaps))
         else:
             yield from self._probe_expand_stream(
-                table, build_batch, self.probe.execute(partition), mode,
+                table, build_batch, probe_batches(partition), mode,
                 key_tables)
 
     # full outer ------------------------------------------------------------
 
     def _execute_full(self, table, build_batch, unique, mode, key_tables,
-                      bkeys, blive):
+                      bkeys, blive, probe_batches):
         """Probe-preserving (left) pass over every probe partition while
         accumulating which build rows matched, then one extra batch of
         unmatched build rows with null probe columns."""
         hit = torch.zeros_like(build_batch.selection)
         nparts = self.probe.output_partitioning().num_partitions
         for p in range(nparts):
-            for pb in self.probe.execute(p):
+            for pb in probe_batches(p):
                 remaps = self._remaps_for(build_batch, pb)
                 if unique:
                     yield self._probe_unique_batch(table, build_batch, pb,

@@ -9,9 +9,13 @@ non-zero exit:
    with: each kernel's registers, and no stack frame and no spills;
 2. the card-only tests of ``tests/test_torch_dense_sums.py``,
    ``tests/test_torch_compile_governor.py``, ``tests/test_torch_ingest.py``,
-   ``tests/test_torch_cluster.py`` and ``tests/test_torch_tbl_device.py``
-   (their ``test_cuda_*`` functions: the kernels against their plain
-   versions and the host scanner, a cold q1 and q10 parsed on the card;
+   ``tests/test_torch_cluster.py``, ``tests/test_torch_tbl_device.py``
+   and ``tests/test_torch_qbench_rest.py`` (their ``test_cuda_*``
+   functions: the kernels against their plain versions and the host
+   scanner, a cold q1 and q10 parsed on the card; the 13 exact TPC-H
+   queries of the ``sf1-warm-rest13`` cell at SF0.05 against the
+   benchmark's NumPy reference, and the device bytes in use read from
+   the caching allocator;
    governed programs captured as CUDA
    graphs — outputs that survive later replays, the kernel counted and
    observed on every replay; pinned asynchronous uploads on producer
@@ -39,7 +43,8 @@ TEST_FILES = [os.path.join("tests", "test_torch_dense_sums.py"),
               os.path.join("tests", "test_torch_compile_governor.py"),
               os.path.join("tests", "test_torch_ingest.py"),
               os.path.join("tests", "test_torch_cluster.py"),
-              os.path.join("tests", "test_torch_tbl_device.py")]
+              os.path.join("tests", "test_torch_tbl_device.py"),
+              os.path.join("tests", "test_torch_qbench_rest.py")]
 SOURCES = [os.path.join("csrc", "dense_grouped_sums.cu"),
            os.path.join("csrc", "tbl_parse.cu")]
 STAND_INS = ("jax", "jax.numpy", "ballista_tpu", "ballista_tpu.kernels",

@@ -158,11 +158,14 @@ def test_standalone_phases_sum_to_wall(tpch_dir, ledger_env, frame):
     phases = {p for j, p in zip(rows["job_id"], rows["phase"])
               if j == led["job_id"]}
     assert phases == set(port_ledger.LEDGER_PHASES) | {"unattributed"}
-    # the JAX package's ledger of the same query has the same shape
+    # the JAX package's ledger of the same query has the same shape, and
+    # the port's standalone ledger adds its operator seconds beside the
+    # phases (q3 plans inner joins only: none)
     ref = _reference_ctx(tpch_dir)
     ref.sql(sql("q3")).collect()
     ref_led = ref.last_query_ledger()
-    assert set(ref_led) == set(led)
+    assert set(ref_led) == set(led) - {"operators"}
+    assert led["operators"] == {}
     assert set(ref_led["phases"]) == set(led["phases"])
 
 
