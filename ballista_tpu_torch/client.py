@@ -39,6 +39,7 @@ import torch
 
 from .datatypes import Schema, schema as make_schema
 from .errors import ExecutionError, PlanError
+from .observability import hostclock
 from . import expr as ex
 from .io import CsvSource, MemTableSource, ParquetSource, TblSource
 from .logical import (
@@ -248,6 +249,10 @@ class BallistaContext:
     # -- SQL ----------------------------------------------------------------
 
     def sql(self, query: str) -> "DataFrame":
+        with hostclock.charged(hostclock.FRONTEND):
+            return self._sql(query)
+
+    def _sql(self, query: str) -> "DataFrame":
         cached = self._plan_cache.get(query)
         if cached is not None:
             return cached
@@ -480,7 +485,8 @@ class BallistaContext:
         cluster path's status poll delivers them."""
         from .observability.systables import StandaloneQueryRecorder
 
-        rec = StandaloneQueryRecorder(plan, session_id=self.session_id)
+        with hostclock.charged(hostclock.RECORDER):
+            rec = StandaloneQueryRecorder(plan, session_id=self.session_id)
         sampler = None
         if on_progress is not None:
             from .observability.progress import LocalProgressSampler
@@ -492,18 +498,25 @@ class BallistaContext:
         except Exception as e:  # noqa: BLE001 - record, then propagate
             from .errors import QueryCancelled
 
-            if sampler is not None:
-                sampler.finish("cancelled" if isinstance(e, QueryCancelled)
-                               else "failed")
-            rec.finish("failed", error=e)
+            with hostclock.charged(hostclock.RECORDER):
+                if sampler is not None:
+                    sampler.finish("cancelled"
+                                   if isinstance(e, QueryCancelled)
+                                   else "failed")
+                rec.finish("failed", error=e)
+            rec.host.update(hostclock.take())
             self._last_query_ledger = rec.ledger
             self._last_ledger_env = None
             raise
-        if sampler is not None:
-            # terminal callback BEFORE the recorder tears the handle
-            # down: the final snapshot reports fraction exactly 1.0
-            sampler.finish("completed")
-        rec.finish("completed", result=out, phys=phys2)
+        with hostclock.charged(hostclock.RECORDER):
+            if sampler is not None:
+                # terminal callback BEFORE the recorder tears the handle
+                # down: the final snapshot reports fraction exactly 1.0
+                sampler.finish("completed")
+            rec.finish("completed", result=out, phys=phys2)
+        # the ledger, recorded inside the finish, holds this very dict:
+        # its host seconds are complete once the recorder's are in
+        rec.host.update(hostclock.take())
         self._last_query_ledger = rec.ledger
         self._last_ledger_env = None
         return out, phys2
@@ -572,7 +585,8 @@ class BallistaContext:
         token = CancelToken()
         with self._track_lifecycle(token, self._active_tokens), \
                 bind_token(token), \
-                slow_query_killer(token):
+                slow_query_killer(token), \
+                hostclock.charged(hostclock.OPERATORS):
             return self._collect_governed(plan, phys, frame)
 
     def _collect_governed(self, plan: LogicalPlan, phys=None,
@@ -585,7 +599,7 @@ class BallistaContext:
         from .physical.explain import ExplainAnalyzeExec, ExplainExec
         from .physical.fusion import maybe_fuse
 
-        with ledger_phase("planning"):
+        with ledger_phase("planning"), hostclock.charged(hostclock.FRONTEND):
             if phys is None:
                 phys = plan_logical(plan, self._planner_options())
             # whole-stage fusion: each pipeline stage becomes one
@@ -625,7 +639,8 @@ class BallistaContext:
         # cancelled, never leaked
         prime_plan(phys)
         try:
-            phys = self._apply_adaptive(phys)
+            with hostclock.charged(hostclock.FRONTEND):
+                phys = self._apply_adaptive(phys)
             # live progress: expose the final (adapted) tree to this
             # thread's query handle — the on_progress sampler and
             # system.tasks/system.stages read it weakly (a no-op for an

@@ -528,7 +528,10 @@ class ColumnBatch:
         return out
 
     def num_rows_host(self) -> int:
-        return int(self.num_rows)
+        from .observability.tracing import trace_span
+
+        with trace_span("device.block", site="batch.num_rows"):
+            return int(self.num_rows)
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         return (

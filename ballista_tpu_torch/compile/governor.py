@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from ..errors import ExecutionError
+from ..observability import hostclock
 
 __all__ = [
     "CAPTURE",
@@ -406,7 +407,7 @@ class _GraphProgram:
             raise CaptureError(
                 f"{_render_key(gf.key)}: arguments on several devices "
                 f"({sorted({str(t.device) for t in leaves})})")
-        with _CAPTURE_LOCK:
+        with hostclock.held(_CAPTURE_LOCK):
             return cls._capture(gf, args, leaves, device)
 
     @staticmethod
@@ -491,7 +492,7 @@ class _GraphProgram:
             if donate is not None:
                 donate.donate()
             return _unflatten(self.out_spec, iter(outs))
-        with _REPLAY_LOCK:
+        with hostclock.held(_REPLAY_LOCK):
             self.calls += 1
             for s, t in zip(self.static_in, leaves):
                 s.copy_(t)
@@ -568,7 +569,16 @@ class GovernedFunction:
     def call_with(self, metrics, *args, donate=None):
         """Invoke, attributing a new signature's first call to
         ``metrics`` (an observability MetricsSet, or None). ``donate``:
-        an argument batch that gives up its tensors (``call_donating``)."""
+        an argument batch that gives up its tensors (``call_donating``).
+        The call's host time is the thread's ``governor`` seconds
+        (``observability/hostclock.py``)."""
+        hostclock.enter(hostclock.GOVERNOR)
+        try:
+            return self._call(metrics, args, donate)
+        finally:
+            hostclock.leave()
+
+    def _call(self, metrics, args: tuple, donate):
         _STATS["governed_calls"] += 1
         self.calls += 1
         sig, leaves = _signature(args)
@@ -582,7 +592,7 @@ class GovernedFunction:
             # flight (one at a time), and replays the program when that
             # was this signature's (the prewarm pass's, say)
             t0 = _PERF()
-            with _CAPTURE_LOCK:
+            with hostclock.held(_CAPTURE_LOCK):
                 _STATS["capture_lock_wait_seconds"] += _PERF() - t0
                 prog = self._program(sig)
                 if prog is None:
@@ -610,7 +620,7 @@ class GovernedFunction:
         already; raises what the call raises."""
         sig, leaves = _signature(args)
         cuda = bool(leaves) and _captures(leaves[0].device)
-        with _CAPTURE_LOCK:
+        with hostclock.held(_CAPTURE_LOCK):
             if self._program(sig) is not None:
                 return False
             if keep:

@@ -26,7 +26,7 @@ from .logical import (
     Repartition,
     Sort,
 )
-from .observability import trace_span
+from .observability import hostclock, trace_span
 from .optimizer import optimize
 from .physical.base import PhysicalPlan
 from .physical.planner import create_physical_plan
@@ -149,17 +149,22 @@ def collect_physical(phys: PhysicalPlan) -> Dict[str, np.ndarray]:
     """Execute all partitions and concatenate live rows on host as a
     dict of numpy arrays (logical values). Partitions run concurrently
     on the ingest pool (batch order is preserved — see
-    ingest.iter_partitions); serial when the pipeline is gated off."""
+    ingest.iter_partitions); serial when the pipeline is gated off.
+    Its host time is the thread's ``operators`` seconds
+    (``observability/hostclock.py``), also where a scalar subquery runs
+    it inside planning."""
     from .ingest import iter_partitions
     from .lifecycle import check_cancel
 
-    parts: List[Dict[str, np.ndarray]] = []
-    for batch in iter_partitions(
-            phys, range(phys.output_partitioning().num_partitions)):
-        # cooperative cancellation: a fired token (ctx.cancel, the
-        # slow-query killer) stops the collect at a batch boundary
-        check_cancel()
-        parts.append(batch.to_pydict())
-    if not parts:
-        return {f.name: np.asarray([]) for f in phys.output_schema().fields}
-    return concat_pydicts(parts)
+    with hostclock.charged(hostclock.OPERATORS):
+        parts: List[Dict[str, np.ndarray]] = []
+        for batch in iter_partitions(
+                phys, range(phys.output_partitioning().num_partitions)):
+            # cooperative cancellation: a fired token (ctx.cancel, the
+            # slow-query killer) stops the collect at a batch boundary
+            check_cancel()
+            parts.append(batch.to_pydict())
+        if not parts:
+            return {f.name: np.asarray([])
+                    for f in phys.output_schema().fields}
+        return concat_pydicts(parts)

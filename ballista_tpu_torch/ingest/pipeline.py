@@ -30,7 +30,7 @@ from concurrent import futures
 from typing import Callable, Dict, Iterable, List, Optional
 
 from .. import lifecycle
-from ..observability import tracing
+from ..observability import hostclock, tracing
 from ..observability.tracing import trace_event, trace_span
 from . import phases
 from .config import ingest_threads, prefetch_batches
@@ -105,6 +105,7 @@ def _on_ingest_pool() -> bool:
 # sentinels carried through the queue alongside batches
 _DONE = object()
 _ERROR = object()
+_INLINE = object()  # the producer never started: run it on the consumer
 
 
 class PrefetchHandle:
@@ -150,18 +151,25 @@ class PrefetchHandle:
     # -- producer (pool worker) ---------------------------------------------
 
     def _produce(self) -> None:
+        # the worker's host clock counts this handle's production alone
+        # (operators), and its waits on a full queue (pool_wait); the
+        # sentinel hands it to the consumer's collect (hostclock.absorb)
+        hostclock.take()
         with tracing.flow(**self._flow), \
                 lifecycle.bind_token(self._token), \
-                trace_span("ingest.prefetch", label=self.label):
+                trace_span("ingest.prefetch", label=self.label), \
+                hostclock.charged(hostclock.OPERATORS):
             try:
                 with phases.bind(self._recorder):
                     for batch in self._factory():
-                        if not self._put((batch, None)):
+                        with hostclock.charged(hostclock.POOL_WAIT):
+                            put = self._put((batch, None))
+                        if not put:
                             return  # cancelled while blocked on a full queue
             except BaseException as e:  # noqa: BLE001 - re-raised at consumer
                 self._put((_ERROR, e))
                 return
-        self._put((_DONE, None))
+        self._put((_DONE, hostclock.take()))
 
     def _put(self, item) -> bool:
         while not self._closed.is_set():
@@ -197,25 +205,18 @@ class PrefetchHandle:
         try:
             while True:
                 t0 = time.perf_counter()
-                try:
-                    kind, err = self._q.get(timeout=0.05)
-                except queue.Empty:
-                    waited += time.perf_counter() - t0
-                    if self._future.cancel():
-                        yield from phases.bound_iter(
-                            iter(self._factory()), rec)
-                        return
-                    if self._future.done() and self._q.empty():
-                        # producer exited without a sentinel: only
-                        # possible after an external cancel() — end the
-                        # stream rather than poll forever
-                        return
-                    continue
+                with hostclock.charged(hostclock.POOL_WAIT):
+                    kind, extra = self._take()
                 waited += time.perf_counter() - t0
+                if kind is _INLINE:
+                    yield from phases.bound_iter(iter(self._factory()), rec)
+                    return
                 if kind is _DONE:
+                    if extra is not None:
+                        hostclock.absorb(extra)
                     return
                 if kind is _ERROR:
-                    raise err
+                    raise extra
                 if rec is not None:
                     rec.count_prefetched()
                 yield kind
@@ -223,6 +224,21 @@ class PrefetchHandle:
             if rec is not None:
                 rec.add_wait(waited)
             self.cancel()
+
+    def _take(self):
+        """The next queued item, polling the queue: ``(_INLINE, None)``
+        when the producer never started (the consumer takes the scan
+        inline), ``(_DONE, None)`` when it exited without a sentinel,
+        which only an external cancel() makes (the stream ends rather
+        than polls forever)."""
+        while True:
+            try:
+                return self._q.get(timeout=0.05)
+            except queue.Empty:
+                if self._future.cancel():
+                    return _INLINE, None
+                if self._future.done() and self._q.empty():
+                    return _DONE, None
 
     def cancel(self) -> None:
         """Stop the producer (idempotent) and drop queued batches."""
@@ -248,7 +264,11 @@ def parallel_map(fn: Callable, items: Iterable) -> List:
     try:
         out = [fn(items[0])]
         for x, fut in pending:
-            out.append(fn(x) if fut.cancel() else fut.result())
+            if fut.cancel():
+                out.append(fn(x))
+            else:
+                with hostclock.charged(hostclock.POOL_WAIT):
+                    out.append(fut.result())
             done += 1
         return out
     finally:

@@ -80,6 +80,7 @@ from ..ingest.phases import count, phase
 from ..kernels import tbl_parse
 from ..lifecycle import check_cancel
 from ..logical import TableSource
+from ..observability import hostclock
 from ..observability.memory import track_host_bytes
 from ..observability.tracing import trace_span
 
@@ -171,7 +172,8 @@ def stage_text(path: str, device: torch.device,
         while pending:
             check_cancel()  # a cancelled collect stops between chunks
             off, host, fut = pending.popleft()
-            fut.result()
+            with hostclock.charged(hostclock.POOL_WAIT):
+                fut.result()
             if header_open:
                 # a pinned host buffer, no device value
                 # ballista: ignore[sync-span]

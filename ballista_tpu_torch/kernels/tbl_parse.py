@@ -295,7 +295,9 @@ def _stream(dev) -> int:
 
 
 def _addresses(ptrs: Sequence[int], dev) -> torch.Tensor:
-    return torch.tensor(list(ptrs), dtype=torch.int64).to(dev)
+    # a copy from pageable host memory: the host waits for the stream
+    with trace_span("device.block", site="tbl_parse.args"):
+        return torch.tensor(list(ptrs), dtype=torch.int64).to(dev)
 
 
 # -- the row split ----------------------------------------------------------
@@ -314,7 +316,8 @@ def _split_rows_cuda(data, size, begin) -> torch.Tensor:
         _stream(dev)), "count_row_starts")
     launch_count += 1
     inclusive = torch.cumsum(counts, 0, dtype=torch.int64)
-    n = int(inclusive[-1])
+    with trace_span("device.block", site="tbl_parse.row_count"):
+        n = int(inclusive[-1])
     starts = torch.empty(n, dtype=torch.int64, device=dev)
     if n:
         _raise_on(lib, lib.tbl_write_row_starts(
@@ -360,8 +363,9 @@ def _parse_rows_cuda(data, size, starts, delimiter, kinds, scales, cols):
             values[ci] = c["values"].data_ptr()
             valid[ci] = c["valid"].data_ptr()
     args = [_addresses(a, dev) for a in (values, lens, hashes, valid)]
-    kinds_t = torch.tensor(kinds, dtype=torch.int32).to(dev)
-    scales_t = torch.tensor(scales, dtype=torch.int32).to(dev)
+    with trace_span("device.block", site="tbl_parse.args"):
+        kinds_t = torch.tensor(kinds, dtype=torch.int32).to(dev)
+        scales_t = torch.tensor(scales, dtype=torch.int32).to(dev)
     nulls = torch.zeros(ncols, dtype=torch.int32, device=dev)
     err = torch.full((1,), -1, dtype=torch.int64, device=dev)  # all bits set
     _raise_on(lib, lib.tbl_parse_rows(
@@ -548,10 +552,13 @@ def dictionary_encode(data: torch.Tensor, fstart: torch.Tensor,
     boundary[1:] = sorted_h[1:] != sorted_h[:-1]
     gid = torch.empty(n, dtype=torch.int64, device=dev)
     gid[perm] = torch.cumsum(boundary, 0) - 1
-    rep = perm[boundary]
+    with trace_span("device.block", site="tbl_parse.groups"):
+        rep = perm[boundary]  # the mask's count comes to the host
     flags, mismatches = _verify(data, fstart, flen, gid, rep)
     extra = 0
-    if int(mismatches):
+    with trace_span("device.block", site="tbl_parse.mismatches"):
+        mismatches = int(mismatches)
+    if mismatches:
         rows = torch.nonzero(flags).flatten()
         mblob, moffs = _values_of(data, fstart, flen, rows)
         k = int(rep.numel())
@@ -582,7 +589,8 @@ def byte_order(data: torch.Tensor, starts: torch.Tensor,
     dev = data.device
     lens = lens.to(torch.int64)
     order = torch.sort(lens, stable=True)[1]
-    width = int(lens.max()) if lens.numel() else 0
+    with trace_span("device.block", site="tbl_parse.width"):
+        width = int(lens.max()) if lens.numel() else 0
     shifts = torch.arange(56, -8, -8, dtype=torch.int64, device=dev)
     top = max(data.numel() - 1, 0)
     for j in reversed(range(0, width, 8)):
@@ -637,7 +645,8 @@ def _verify(data, fstart, flen, gid, rep):
 
 def _gather(data, fstart, flen, rows, offs):
     global launch_count
-    total = int(offs[-1])
+    with trace_span("device.block", site="tbl_parse.gather_bytes"):
+        total = int(offs[-1])
     out = torch.empty(total, dtype=torch.uint8, device=data.device)
     k = int(rows.numel())
     if total == 0:

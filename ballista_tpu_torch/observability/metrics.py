@@ -43,6 +43,8 @@ from typing import Dict, Iterable, List, Optional
 
 import torch
 
+from . import hostclock
+
 # -- global enablement -------------------------------------------------------
 
 # metrics default ON: the per-batch cost is two perf_counter() calls and
@@ -209,8 +211,10 @@ def _fmt_secs(secs: float) -> str:
 def instrument_execute(fn):
     """Wrap a PhysicalPlan.execute generator so each call records
     output rows/batches and cumulative wall time on the operator's
-    MetricsSet. Applied automatically by PhysicalPlan.__init_subclass__;
-    idempotent via the ``_obs_wrapped`` marker."""
+    MetricsSet, and each ``next()`` charges the thread's ``operators``
+    host clock (``hostclock.py``). Applied automatically by
+    PhysicalPlan.__init_subclass__; idempotent via the ``_obs_wrapped``
+    marker."""
     if getattr(fn, "_obs_wrapped", False):
         return fn
 
@@ -227,14 +231,18 @@ def instrument_execute(fn):
         host_peak = obs_memory.current_host_bytes
         dev_peak = obs_memory.device_bytes
         acc = 0.0
+        enter, leave = hostclock.enter, hostclock.leave
         try:
             while True:
                 t0 = perf()
+                enter(hostclock.OPERATORS)
                 try:
                     batch = next(it)
                 except StopIteration:
                     acc += perf() - t0
                     return
+                finally:
+                    leave()
                 acc += perf() - t0
                 m.record_output_batch(batch)
                 # monotone per-operator memory high-water marks: cheap

@@ -779,6 +779,10 @@ class StandaloneQueryRecorder:
         # window the collect path writes planning/host_decode into;
         # _finish_inner assembles + records the full ledger
         self.ledger: Optional[dict] = None
+        # the collect thread's host seconds by category (hostclock.py),
+        # the ledger's ``host`` key: filled by the collect when it
+        # returns, after this recorder's finish, so the finish counts
+        self.host: dict = {}
         from . import ledger as obs_ledger
 
         obs_ledger.begin_collect()
@@ -840,6 +844,7 @@ class StandaloneQueryRecorder:
         from .operators import operator_sums
 
         self.ledger["operators"] = operator_sums(records or ())
+        self.ledger["host"] = self.host
         obs_ledger.record_ledger(self.ledger)
 
     def finish(self, status: str, result=None, phys=None,

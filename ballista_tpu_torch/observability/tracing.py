@@ -68,6 +68,8 @@ from collections import deque
 from contextlib import contextmanager
 from typing import Optional
 
+from . import hostclock
+
 _lock = threading.Lock()
 _state: dict = {"configured": False, "fh": None, "ring": None}
 _span_ids = itertools.count(1)
@@ -354,7 +356,9 @@ class trace_span:
     """``with trace_span("executor.task", task=key): ...`` — records one
     line with the span's start time and duration (exceptions are noted
     as ``error=<ExcType>`` and re-raised). Each span gets a process-
-    local ``sid`` and its enclosing span's ``psid``."""
+    local ``sid`` and its enclosing span's ``psid``. A ``device.block``
+    span also charges its time to the thread's ``device_wait`` host
+    clock (``hostclock.py``), recorded or not."""
 
     __slots__ = ("name", "attrs", "_t0", "_sid", "_psid")
 
@@ -363,6 +367,8 @@ class trace_span:
         self.attrs = attrs
 
     def __enter__(self):
+        if self.name == "device.block":
+            hostclock.enter(hostclock.DEVICE_WAIT)
         if not _recording():
             self._t0 = None
             return self
@@ -374,6 +380,8 @@ class trace_span:
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        if self.name == "device.block":
+            hostclock.leave()
         if self._t0 is not None:
             st = _span_stack()
             if st and st[-1] == self._sid:

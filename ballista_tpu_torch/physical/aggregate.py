@@ -540,14 +540,19 @@ class HashAggregateExec(PhysicalPlan):
                     fn = self.governed_jit(
                         ("agg.mixed", tuple(spans), tuple(layout)),
                         self._mixed_build(tuple(spans), layout))
-                    out, _ng = donating_call(fn, batch, torch.tensor(
-                        bases, dtype=torch.int64, device=batch.device))
+                    # a copy from pageable host memory: the host waits
+                    # for the card's stream
+                    with trace_span("device.block", site="agg.bases"):
+                        bases_t = torch.tensor(bases, dtype=torch.int64,
+                                               device=batch.device)
+                    out, _ng = donating_call(fn, batch, bases_t)
                     return out  # gid < G by construction: no overflow
                 self._ranged_rejected = True
         # sort path with the overflow retry
         while True:
             out, num_groups = self._grouped_fn(cap)(batch)
-            ng = int(num_groups)  # between programs
+            with trace_span("device.block", site="agg.groups"):
+                ng = int(num_groups)  # between programs
             if ng <= cap:
                 # persist the learned capacity: the operator is reused
                 # across partitions and collects
@@ -694,6 +699,8 @@ class HashAggregateExec(PhysicalPlan):
                     arr, validity = expand(arrs[0], vas[0], out_f.dtype)
                     cols.append(Column(arr, out_f.dtype, validity, None))
         sel = torch.zeros((cap,), dtype=torch.bool, device=dev)
-        sel[0] = True
+        # a write from the host: it waits for the card's stream
+        with trace_span("device.block", site="agg.scalar_selection"):
+            sel[0] = True
         return ColumnBatch(schema, cols, sel,
                            torch.ones((), dtype=torch.int32, device=dev))

@@ -28,6 +28,7 @@ from ..compile import bucket_capacity, governed
 from ..datatypes import Schema
 from ..errors import ExecutionError
 from ..observability.metrics import MetricsSet, instrument_execute
+from ..observability.tracing import trace_span
 
 
 @dataclass(frozen=True)
@@ -357,7 +358,11 @@ def maybe_compact(batch: ColumnBatch, shrink_factor: int = 4,
     this reads ``num_rows`` (one device sync). The JAX package skips that
     sync when it measured it as expensive (a remote TPU); on a local card
     it costs microseconds, so the port always pays it."""
-    n = known_rows if known_rows is not None else int(batch.num_rows)
+    if known_rows is not None:
+        n = known_rows
+    else:
+        with trace_span("device.block", site="compact.rows"):
+            n = int(batch.num_rows)
     cap = batch.capacity
     # compaction targets land on the bucket ladder
     new_cap = max(bucket_capacity(n), floor, 8)

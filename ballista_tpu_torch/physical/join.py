@@ -51,7 +51,7 @@ from ..datatypes import Schema
 from ..errors import ExecutionError, NotImplementedError_
 from ..ingest import KeyedLocks
 from ..kernels import join as join_k
-from ..observability import trace_span
+from ..observability import hostclock, trace_span
 from ..observability.tracing import record_span
 from .base import PhysicalPlan, Partitioning, concat_batches, maybe_compact
 
@@ -446,7 +446,7 @@ class JoinExec(PhysicalPlan):
         key = partition if self.partitioned else 0
         if key in self._build_data:  # fast path: no lock once built
             return self._build_data[key]
-        with self._build_locks.get(key):
+        with hostclock.held(self._build_locks.get(key)):
             if key not in self._build_data:
                 self._build_data[key] = self._build_side(partition)
         return self._build_data[key]
@@ -496,7 +496,9 @@ class JoinExec(PhysicalPlan):
                 # quantized as in the JAX package; padding slots stay -1
                 size = round_capacity(size)
                 rows, dup = join_k.build_dense(keys, live, base, size)
-                if not bool(dup):
+                with trace_span("device.block", site="join.dense_dup"):
+                    dup = bool(dup)
+                if not dup:
                     # 0-d tensors, not Python ints: a probe program takes
                     # them as arguments, so every partition's build shares
                     # one program
@@ -509,7 +511,8 @@ class JoinExec(PhysicalPlan):
                                               device=bb.device))
         if table is None:
             table, uniq = join_k.build_sorted_with_unique(keys, live)
-            unique = bool(uniq)
+            with trace_span("device.block", site="join.unique"):
+                unique = bool(uniq)
         return (table, bb, unique, has_null_key, mode, key_tables, keys,
                 live)
 

@@ -31,6 +31,7 @@ from ..kernels.expr_eval import Evaluator
 from ..kernels.hashing import splitmix64, unsigned_mod
 from ..kernels.sort import sort_permutation
 from ..logical import TableSource
+from ..observability import hostclock
 from .base import (PhysicalPlan, PipelineOp, Partitioning, concat_batches,
                    pad_batch, take_batch)
 
@@ -478,7 +479,7 @@ class RepartitionExec(PhysicalPlan):
                                      self._ev)
 
     def _materialize(self) -> List[ColumnBatch]:
-        with self._mat_lock:
+        with hostclock.held(self._mat_lock):
             if self._cache is None:
                 from ..ingest import iter_partitions
 
@@ -501,7 +502,7 @@ class RepartitionExec(PhysicalPlan):
         ONE host fetch. Round-robin reads the row offset, so it keeps
         the serial loop with one fetch per batch, as does
         ``BALLISTA_PREFETCH_BATCHES=0``."""
-        with self._mat_lock:
+        with hostclock.held(self._mat_lock):
             if self._parts is None:
                 t0 = time.perf_counter()
                 self._parts = self._sorted_parts(self._materialize())

@@ -32,6 +32,7 @@ from ..columnar import ColumnBatch, DeviceLike, side_stream_uploads
 from ..datatypes import Schema
 from ..errors import ExecutionError
 from ..distributed.types import PartitionLocation
+from ..observability import hostclock
 from .base import PhysicalPlan, Partitioning
 
 
@@ -243,7 +244,7 @@ class ShuffleReaderExec(PhysicalPlan):
         unification."""
         if q in self._cache:  # fast path once loaded
             return self._cache[q]
-        with self._group_locks.get(q):
+        with hostclock.held(self._group_locks.get(q)):
             if q in self._cache:
                 return self._cache[q]
             import time
@@ -272,7 +273,8 @@ class ShuffleReaderExec(PhysicalPlan):
         with self._inflight_lock:
             fut = self._inflight.pop(q, None)
         if fut is not None and not fut.cancel():
-            return fut.result()
+            with hostclock.charged(hostclock.POOL_WAIT):
+                return fut.result()
         return self._load_group(q)
 
     def _bg_load(self, q: int) -> List[ColumnBatch]:

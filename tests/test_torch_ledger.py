@@ -13,7 +13,8 @@ package's, on the CPU at TPC-H SF0.002 (the counterpart of
 - the fixed schemas: ``LEDGER_PHASES`` and ``LANE_NAMES`` equal the JAX
   package's, and every ledger carries every phase;
 - standalone, the phases plus the unattributed remainder sum to the
-  wall (within 1e-4 s), ``collect()`` stamps ``host_decode``, the ledger
+  wall (within 1e-4 s), the port's ``operators`` and ``host`` keys sit
+  beside them, ``collect()`` stamps ``host_decode``, the ledger
   lands in the process log behind ``system.latency``, and
   ``BALLISTA_LEDGER=0`` records nothing;
 - through a port ``LocalCluster``: ``last_query_ledger()`` fetches the
@@ -160,12 +161,14 @@ def test_standalone_phases_sum_to_wall(tpch_dir, ledger_env, frame):
     assert phases == set(port_ledger.LEDGER_PHASES) | {"unattributed"}
     # the JAX package's ledger of the same query has the same shape, and
     # the port's standalone ledger adds its operator seconds beside the
-    # phases (q3 plans inner joins only: none)
+    # phases (q3 plans inner joins only: none) and its collect thread's
+    # host seconds by category (observability/hostclock.py)
     ref = _reference_ctx(tpch_dir)
     ref.sql(sql("q3")).collect()
     ref_led = ref.last_query_ledger()
-    assert set(ref_led) == set(led) - {"operators"}
+    assert set(ref_led) == set(led) - {"operators", "host"}
     assert led["operators"] == {}
+    assert led["host"]["operators"] > 0.0 and led["host"]["switches"] > 0
     assert set(ref_led["phases"]) == set(led["phases"])
 
 
